@@ -1,6 +1,5 @@
-"""Where does the LV decode scan's ~1 ms/frame go? (roofline: the scan
-is latency-bound at ~11% of HBM — the per-frame op chain's DEPTH, not
-width, sets the rate).
+"""Where does the LV decode scan's time per frame go? (Is the per-frame
+op chain's DEPTH, not its width, what sets the rate?)
 
 Times jitted 128-frame scans whose bodies are successive subsets of
 the real top-A factored step at 5k-vocab shapes:
@@ -34,8 +33,8 @@ def main(A=128, B=8, T=128):
     import jax
     import jax.numpy as jnp
 
-    from htk_tpu.algo.decode import LZERO, REC_TBITS, REC_TMASK
-    from htk_tpu.algo.lvnet import compile_lv_loop
+    from htk_jax.algo.decode import LZERO, REC_TBITS, REC_TMASK
+    from htk_jax.algo.lvnet import compile_lv_loop
 
     comp, vocab, words, lm = build_tied_triphone_system(5000, n_tied=2000,
                                                         seed=7)
@@ -125,7 +124,7 @@ def main(A=128, B=8, T=128):
 
     # the production pipeline (OutP + scan + traceback compaction) at
     # the same batch/pruning — the number the components must add up to
-    from htk_tpu.algo.decode import _BEAM_OFF, _lv_pipeline
+    from htk_jax.algo.decode import _BEAM_OFF, _lv_pipeline
 
     pipe = _lv_pipeline(net, comp, "highest", A, False)
     dim = comp.means.shape[1]

@@ -1,6 +1,5 @@
-"""Decompose batched HVite -z / HDecode lattice generation (VERDICT r4
-weak #3: 0.107 xRT at 5k vs 0.0118 plain decode — where do the other
-9x go?).
+"""Decompose batched HVite -z / HDecode lattice generation (how much
+more than a plain decode does it cost at 5k, and where does it go?).
 
 Three legs:
   device_s — the jitted scan + top-K record compaction (operands
@@ -30,9 +29,9 @@ def main(batch=16, k_lat=None, corpus="model"):
     import jax
     import jax.numpy as jnp
 
-    from htk_tpu.algo import decode as dmod
-    from htk_tpu.algo.decode import LAT_TOPK, generate_lattice_batch
-    from htk_tpu.algo.lvnet import compile_lv_loop
+    from htk_jax.algo import decode as dmod
+    from htk_jax.algo.decode import LAT_TOPK, generate_lattice_batch
+    from htk_jax.algo.lvnet import compile_lv_loop
 
     comp, vocab, words, lm = build_tied_triphone_system(5000, n_tied=2000,
                                                         seed=7)

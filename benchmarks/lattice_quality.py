@@ -34,7 +34,7 @@ WORDS_PER = (6, 10)
 def synth_utt(comp, vocab, seq, rng, frames_per_state=3,
               noise=float(os.environ.get("NOISE", "4.0"))):
     """Emit frames by walking each word's pron chain state means."""
-    from htk_tpu.algo.composite import build_composite
+    from htk_jax.algo.composite import build_composite
 
     frames = []
     for w in seq:
@@ -63,9 +63,9 @@ def wer(ref, hyp):
 
 def main():
     from bench import build_tied_triphone_system
-    from htk_tpu.algo.decode import generate_lattice_batch
-    from htk_tpu.algo.latops import best_path_trigram, oracle_error
-    from htk_tpu.algo.lvnet import compile_lv_loop
+    from htk_jax.algo.decode import generate_lattice_batch
+    from htk_jax.algo.latops import best_path_trigram, oracle_error
+    from htk_jax.algo.lvnet import compile_lv_loop
 
     rng = np.random.default_rng(7)
     lm_order = int(os.environ.get("LMORDER", "2"))
@@ -159,7 +159,7 @@ def main():
                     resc += len(ref)
                     hyps.append([])
                     continue
-                from htk_tpu.algo.latops import best_path
+                from htk_jax.algo.latops import best_path
 
                 _s, path = best_path(lat)
                 hyp = [w for (w, _t, _a) in path

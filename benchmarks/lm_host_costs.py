@@ -3,7 +3,7 @@
 These are pure host (CPU) costs that gate every large-vocabulary decode
 session start: read the ARPA file, then compile the factored cross-word
 tables. Both were Python loops; round 3 adds the native C++ ARPA codec
-(htk_tpu/native/htknative.cpp) and vectorises the table builders.
+(htk_jax/native/htknative.cpp) and vectorises the table builders.
 
 Usage: python benchmarks/lm_host_costs.py [V] [NBI]
 Writes a synthetic V-word ARPA with NBI bigram lines to /tmp and times
@@ -49,8 +49,8 @@ def main():
         gen(path, V, nbi)
     sz = os.path.getsize(path) / 1e6
 
-    from htk_tpu.algo import lvnet
-    from htk_tpu.io.lm import read_arpa
+    from htk_jax.algo import lvnet
+    from htk_jax.io.lm import read_arpa
 
     t0 = time.time()
     lm_nat = read_arpa(path)

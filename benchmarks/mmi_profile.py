@@ -24,12 +24,12 @@ def main(prune_beam=None):
 
     import jax
 
-    from htk_tpu.algo.decode import generate_lattice_batch
-    from htk_tpu.algo.fb import zero_accs
-    from htk_tpu.algo.latops import arc_posteriors, prune
-    from htk_tpu.algo.lvnet import compile_lv_loop
-    from htk_tpu.algo.trainer import Trainer, prepare_utterance
-    from htk_tpu.tools.hmmirest import ArcFB, lattice_arc_utts
+    from htk_jax.algo.decode import generate_lattice_batch
+    from htk_jax.algo.fb import zero_accs
+    from htk_jax.algo.latops import arc_posteriors, prune
+    from htk_jax.algo.lvnet import compile_lv_loop
+    from htk_jax.algo.trainer import Trainer, prepare_utterance
+    from htk_jax.tools.hmmirest import ArcFB, lattice_arc_utts
 
     n_utts, T, period = 4, 500, 100000
     comp, vocab, words, lm = build_tied_triphone_system(5000, n_tied=2000,

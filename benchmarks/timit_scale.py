@@ -1,16 +1,16 @@
 """TIMIT-scale HERest iteration wall-clock (one chip).
 
 Synthesises a 3,696-utterance TIMIT-sized corpus and times one full
-embedded-reestimation pass; the v5e-8 figure divides by 8 (accumulator
-psum is the only cross-chip op, so scaling is linear until transfer
+embedded-reestimation pass; the n-card figure divides by n (accumulator
+psum is the only cross-card op, so scaling is linear until transfer
 binds). Run on the accelerator backend: python benchmarks/timit_scale.py
 """
 import time, numpy as np, jax
 import os, sys; sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 from bench import build_model
-from htk_tpu.algo.trainer import DeviceCompositeTrainer, Trainer, prepare_utterance, prepare_utterance_ids
-from htk_tpu.algo.reestimate import reestimate, UpdateFlags
-from htk_tpu.models.hmmset import write_back
+from htk_jax.algo.trainer import DeviceCompositeTrainer, Trainer, prepare_utterance, prepare_utterance_ids
+from htk_jax.algo.reestimate import reestimate, UpdateFlags
+from htk_jax.models.hmmset import write_back
 
 comp, names = build_model(n_phones=48, nstates=5, dim=39, nmix=1)
 rng = np.random.default_rng(0)
@@ -43,7 +43,7 @@ m, v, w, t = reestimate(comp, accs, UpdateFlags())
 write_back(comp, means=m, variances=v, weights=w, transps=t)
 print(f"update: {time.perf_counter()-t0:.1f}s", flush=True)
 print(f"TOTAL single-chip iteration (excl. one-off prep): {t_acc:.1f}s")
-print(f"v5e-8 estimate: {t_acc/8:.1f}s/iteration x the sharding overhead "
+print(f"4-card estimate: {t_acc/4:.1f}s/iteration x the sharding overhead "
       "factor MEASURED by benchmarks/mesh_scaling.py (serial vs "
       "shard_map+psum at equal work; the cross-chip op is one "
       "accumulator psum per batch)")

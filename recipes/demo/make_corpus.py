@@ -78,8 +78,8 @@ def main(n_train=10, seed=21):
     )
     open("wlist", "w").write("ONE\nTWO\nTHREE\nSIL\n")
 
-    from htk_tpu.io.mmf import save_mmf
-    from htk_tpu.models.proto import make_proto
+    from htk_jax.io.mmf import save_mmf
+    from htk_jax.models.proto import make_proto
 
     save_mmf(make_proto(nstates=5, dim=39, parm_kind="MFCC_E_D_A"), "proto")
     print(f"demo corpus: {n_train} utterances")

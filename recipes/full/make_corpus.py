@@ -157,8 +157,8 @@ def main():
     open("monophones", "w").write("\n".join(PHONES + ["sil"]) + "\n")
 
     # 5-state 39-dim MFCC_E_D_A proto
-    from htk_tpu.io.mmf import save_mmf
-    from htk_tpu.models.proto import make_proto
+    from htk_jax.io.mmf import save_mmf
+    from htk_jax.models.proto import make_proto
 
     hs = make_proto(nstates=5, dim=39, parm_kind="MFCC_E_D_A")
     save_mmf(hs, "proto")

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Generate externally-grounded golden MFCC/FBANK fixtures.
 
-This script is deliberately INDEPENDENT of htk_tpu: it imports nothing
+This script is deliberately INDEPENDENT of htk_jax: it imports nothing
 from the package and shares no table-building code with it.  Every
 formula below is transcribed from the published HTKBook (v3.4, chapter
 5 "Speech Input/Output") and the HTK Definitions it documents:
@@ -34,7 +34,7 @@ are the classic Peterson & Barney vowel measurements.
 
 Run from the repo root:  python tests/golden/gen_mfcc_golden.py
 Writes tests/golden/mfcc_golden.npz (waveform + features per kind).
-tests/test_golden_frontend.py asserts htk_tpu's device frontend against
+tests/test_golden_frontend.py asserts htk_jax's device frontend against
 this file; the fixture is committed so the grounding is frozen.
 """
 
@@ -139,7 +139,7 @@ def synth_speech(phones, dur_s=0.18, trans_s=0.03, f0_start=125.0,
 
 
 # --------------------------------------------------------------------------
-# HTKBook-formula MFCC, per-frame scalar float64 (independent of htk_tpu)
+# HTKBook-formula MFCC, per-frame scalar float64 (independent of htk_jax)
 # --------------------------------------------------------------------------
 
 

@@ -5,9 +5,9 @@ most): arc-state DP with an exact 3-word history per state."""
 import numpy as np
 import pytest
 
-from htk_tpu.algo.latops import best_path_4gram, best_path_trigram
-from htk_tpu.io.lm import NGramLM
-from htk_tpu.io.slf import Lattice, LArc, LNode, NULL_WORD
+from htk_jax.algo.latops import best_path_4gram, best_path_trigram
+from htk_jax.io.lm import NGramLM
+from htk_jax.io.slf import Lattice, LArc, LNode, NULL_WORD
 
 
 def diamond_lattice():

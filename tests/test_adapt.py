@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from htk_tpu.algo.adapt import (Transform, cmllr_stats_from_gammas,
+from htk_jax.algo.adapt import (Transform, cmllr_stats_from_gammas,
                                 estimate_cmllr, estimate_mllr_mean, load_tmf,
                                 map_update, save_tmf)
-from htk_tpu.algo.fb import Accumulators
-from htk_tpu.algo.trainer import Trainer, prepare_utterance
+from htk_jax.algo.fb import Accumulators
+from htk_jax.algo.trainer import Trainer, prepare_utterance
 
 from test_fb import small_set
 
@@ -119,7 +119,7 @@ class TestMAP:
 
 class TestSpeakerMask:
     def test_mask_capture(self):
-        from htk_tpu.algo.adapt import speaker_from_mask
+        from htk_jax.algo.adapt import speaker_from_mask
 
         assert speaker_from_mask("%%_*", "sA_u3.mfc") == "sA"
         assert speaker_from_mask("*/%%%_*.mfc", "data/abc_001.mfc") == "abc"
@@ -130,7 +130,7 @@ class TestSpeakerMask:
 
 class TestMLLRVarAndTree:
     def test_var_scale_recovery(self):
-        from htk_tpu.algo.adapt import estimate_mllr_var
+        from htk_jax.algo.adapt import estimate_mllr_var
 
         comp = small_set(nmix=1, seed=12)
         M = comp.n_mix
@@ -161,7 +161,7 @@ class TestMLLRVarAndTree:
                                    xf.var_scale, rtol=1e-5)
 
     def test_tree_backoff(self):
-        from htk_tpu.algo.adapt import (build_regression_tree,
+        from htk_jax.algo.adapt import (build_regression_tree,
                                         estimate_mllr_tree)
 
         comp = small_set(nmix=2, seed=13)
@@ -187,7 +187,7 @@ class TestMLLRVarAndTree:
 
 class TestMLLRCov:
     def test_recovers_covariance_rotation(self):
-        from htk_tpu.algo.adapt import (estimate_mllrcov,
+        from htk_jax.algo.adapt import (estimate_mllrcov,
                                         mllrcov_stats_from_gammas)
 
         rng = np.random.default_rng(5)
@@ -231,14 +231,14 @@ class TestMLLRCov:
     def test_apply_matches_direct_scoring(self):
         import jax.numpy as jnp
 
-        from htk_tpu.algo.adapt import apply_mllrcov, estimate_mllrcov
-        from htk_tpu.ops.outp import full_cov_mix_scores
+        from htk_jax.algo.adapt import apply_mllrcov, estimate_mllrcov
+        from htk_jax.ops.outp import full_cov_mix_scores
 
         rng = np.random.default_rng(6)
         comp = small_set(nmix=1, seed=6)
         M, D = comp.n_mix, comp.dim
         H = np.eye(D) + 0.2 * rng.normal(size=(D, D))
-        xf = __import__("htk_tpu.algo.adapt", fromlist=["Transform"]
+        xf = __import__("htk_jax.algo.adapt", fromlist=["Transform"]
                         ).Transform(kind="MLLRCOV", A=H, b=np.zeros(D))
         fc_proj, fc_mu, gc = apply_mllrcov(comp, xf)
         x = rng.normal(size=(4, D)).astype(np.float32)
@@ -257,7 +257,7 @@ class TestMLLRCov:
 
 class TestCMLLRClasses:
     def test_per_class_recovery_and_backoff(self):
-        from htk_tpu.algo.adapt import (cmllr_stats_from_gammas,
+        from htk_jax.algo.adapt import (cmllr_stats_from_gammas,
                                         estimate_cmllr_classes)
 
         rng = np.random.default_rng(9)
@@ -297,8 +297,8 @@ class TestCMLLRClasses:
     def test_model_space_application_parity(self):
         import jax.numpy as jnp
 
-        from htk_tpu.algo.adapt import Transform, apply_cmllr_classes_fc
-        from htk_tpu.ops.outp import full_cov_mix_scores
+        from htk_jax.algo.adapt import Transform, apply_cmllr_classes_fc
+        from htk_jax.ops.outp import full_cov_mix_scores
 
         rng = np.random.default_rng(10)
         comp = small_set(nmix=1, seed=10)
@@ -330,7 +330,7 @@ class TestBaseclassHTKForm:
         """HTK ~b itemlist base classes (HTKBook adaptation chapter)
         resolve onto compiled Gaussians; save_baseclass's own form
         still loads without the model set."""
-        from htk_tpu.algo.adapt import load_baseclass
+        from htk_jax.algo.adapt import load_baseclass
 
         comp = small_set(nmix=2, seed=3)
         hset = comp._hset
@@ -351,8 +351,8 @@ class TestBaseclassHTKForm:
             assert classes[k] == want
 
     def test_itemlist_baseclass_needs_model_set(self, tmp_path):
-        from htk_tpu.algo.adapt import load_baseclass
-        from htk_tpu.utils.errors import HTKError
+        from htk_jax.algo.adapt import load_baseclass
+        from htk_jax.utils.errors import HTKError
 
         p = str(tmp_path / "bc2.base")
         open(p, "w").write(
@@ -369,7 +369,7 @@ class TestBlockTransforms:
         block-diagonal CMLLR still recovers a feature shift where the
         full solve is under-determined; off-block entries are exactly
         zero."""
-        from htk_tpu.algo.adapt import block_ranges
+        from htk_jax.algo.adapt import block_ranges
 
         comp = small_set(nmix=3, seed=12)
         rng = np.random.default_rng(1)

@@ -7,9 +7,9 @@ decode on EVERY frame, including frames where plain top-A loses paths.
 import numpy as np
 import pytest
 
-from htk_tpu.algo.decode import decode
-from htk_tpu.algo.lvnet import compile_lv_loop
-from htk_tpu.utils.errors import HTKError
+from htk_jax.algo.decode import decode
+from htk_jax.algo.lvnet import compile_lv_loop
+from htk_jax.utils.errors import HTKError
 
 from test_decode import emit_frames, separable_set
 from test_lvdecode import TestFactoredCrossWord, make_lm, make_vocab
@@ -31,7 +31,7 @@ class TestAdaptiveExact:
         bit-for-bit."""
         import jax.numpy as jnp
 
-        from htk_tpu.algo.decode import decode_scan_uniform_batch
+        from htk_jax.algo.decode import decode_scan_uniform_batch
 
         C, S = 4, 1
         LZ = -1.0e10
@@ -115,7 +115,7 @@ class TestAdaptiveExact:
         assert ra.words == r0.words and ra.score == r0.score
 
     def test_batch_and_lattice_paths(self):
-        from htk_tpu.algo.decode import decode_batch, generate_lattice
+        from htk_jax.algo.decode import decode_batch, generate_lattice
 
         comp, net = _fixture()
         seqs = [["aa", "iy", "aa"], ["sil", "aa", "iy"]]

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from htk_tpu.algo.nnet import SGDConfig, hybrid_outp, make_cache, train_ann
-from htk_tpu.models.ann import (ANNDef, Layer, ann_params, forward, init_ann,
+from htk_jax.algo.nnet import SGDConfig, hybrid_outp, make_cache, train_ann
+from htk_jax.models.ann import (ANNDef, Layer, ann_params, forward, init_ann,
                                 load_ann, save_ann, splice)
 
 
@@ -128,7 +128,7 @@ class TestSchedulers:
     def test_grad_clip_bounds_first_update(self):
         """With GRADCLIP = c, no parameter may move farther than lr*c
         in the first (zero-velocity) step."""
-        from htk_tpu.algo.nnet import _sgd_step, ann_params
+        from htk_jax.algo.nnet import _sgd_step, ann_params
         import jax, jax.numpy as jnp
 
         (x, y), _allf = self._data()
@@ -150,10 +150,10 @@ class TestSequenceMMI:
     def test_mmi_objective_rises(self):
         """Sequence training: the MMI objective (num - den logP) must
         increase over iterations (the EM-style monotonicity check)."""
-        from htk_tpu.algo.nnet import train_ann_sequence
+        from htk_jax.algo.nnet import train_ann_sequence
         from test_decode import emit_frames, separable_set
-        from htk_tpu.algo.viterbi import align
-        from htk_tpu.algo.composite import build_composite
+        from htk_jax.algo.viterbi import align
+        from htk_jax.algo.composite import build_composite
 
         comp = separable_set()
         rng = np.random.default_rng(3)

@@ -1,6 +1,6 @@
 """Beam-cliff guardrails (VERDICT r3 item #8).
 
-BASELINE.md's lattice-quality sweep measured a search-error cliff below
+benchmarks/lattice_quality.py's sweep measured a search-error cliff below
 genBeam ~300-400: pruning losses are whole utterances, unrecoverable by
 rescoring. Two defences, both tested here:
   * HDecode warns (numbered 8524) when -t is below HREC: GENBEAMKNEE;
@@ -25,13 +25,13 @@ def _make_lm(run_lbuild=True):
         elif ln and ln != "#!MLF!#":
             cur.append(ln)
     open("words.txt", "w").write("\n".join(sents) + "\n")
-    from htk_tpu.tools import lbuild
+    from htk_jax.tools import lbuild
 
     assert lbuild.run(["-n", "2", "wlist", "lm2.arpa", "words.txt"]) == 0
 
 
 def _tri_clone():
-    from htk_tpu.tools import hhed
+    from htk_jax.tools import hhed
 
     ctx = ["aa", "iy", "sil"]
     tris = [f"{l}-{p}+{r}" for p in ("aa", "iy") for l in ctx for r in ctx]
@@ -42,7 +42,7 @@ def _tri_clone():
 
 
 def test_hdecode_warns_below_knee(trained, capsys):
-    from htk_tpu.tools import hdecode, hresults
+    from htk_jax.tools import hdecode, hresults
 
     _tri_clone()
     _make_lm()
@@ -72,8 +72,8 @@ def test_hdecode_warns_below_knee(trained, capsys):
 def test_hdecode_retry_ladder_recovers(trained, capsys, monkeypatch):
     """A pass-1 that returns no path under pruning self-recovers through
     the widened-beam ladder instead of emitting an empty transcript."""
-    from htk_tpu.algo import decode as dmod
-    from htk_tpu.tools import hdecode, hresults
+    from htk_jax.algo import decode as dmod
+    from htk_jax.tools import hdecode, hresults
 
     _tri_clone()
     _make_lm()
@@ -98,8 +98,8 @@ def test_hdecode_retry_ladder_recovers(trained, capsys, monkeypatch):
 
 
 def test_hvite_retry_ladder_recovers(trained, capsys, monkeypatch):
-    from htk_tpu.algo import decode as dmod
-    from htk_tpu.tools import hvite, hresults
+    from htk_jax.algo import decode as dmod
+    from htk_jax.tools import hvite, hresults
 
     monkeypatch.setattr(
         dmod, "decode_batch",

@@ -5,10 +5,10 @@ from collections import Counter
 import numpy as np
 import pytest
 
-from htk_tpu.tools.cluster import (_f, class_bigram_arpa, exchange_cluster,
+from htk_jax.tools.cluster import (_f, class_bigram_arpa, exchange_cluster,
                                    read_classmap, write_classmap)
-from htk_tpu.tools import cluster as cluster_tool
-from htk_tpu.tools.lbuild import ENTER, EXIT
+from htk_jax.tools import cluster as cluster_tool
+from htk_jax.tools.lbuild import ENTER, EXIT
 
 
 def planted_corpus(rng, n=200):
@@ -86,7 +86,7 @@ class TestTool:
         assert len({cls[w] for w in ("x1", "x2", "x3")}) == 1
 
         # the expanded class LM is valid ARPA and scores y after x higher
-        from htk_tpu.io.lm import read_arpa
+        from htk_jax.io.lm import read_arpa
         lm = read_arpa("class.arpa")
         assert lm.order == 2
         p_xy = lm.bigrams.get(("x1", "y2"))
@@ -94,5 +94,5 @@ class TestTool:
         assert ("x1", "x2") not in lm.bigrams  # unseen class pair backs off
 
         # LPlex consumes it
-        from htk_tpu.tools import lplex
+        from htk_jax.tools import lplex
         assert lplex.run(["-n", "2", "class.arpa", "train.txt"]) == 0

@@ -4,11 +4,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from htk_tpu.algo.composite import build_composite
-from htk_tpu.algo.composite_device import make_assembler
-from htk_tpu.models.hmmset import compile_hmmset
-from htk_tpu.models.proto import clone_proto, make_proto
-from htk_tpu.utils.logmath import LZERO
+from htk_jax.algo.composite import build_composite
+from htk_jax.algo.composite_device import make_assembler
+from htk_jax.models.hmmset import compile_hmmset
+from htk_jax.models.proto import clone_proto, make_proto
+from htk_jax.utils.logmath import LZERO
 
 from test_fb import small_set
 
@@ -94,7 +94,7 @@ class TestDeviceComposite:
 
 class TestDeviceCompositeTrainer:
     def test_matches_host_trainer(self):
-        from htk_tpu.algo.trainer import (DeviceCompositeTrainer, Trainer,
+        from htk_jax.algo.trainer import (DeviceCompositeTrainer, Trainer,
                                           prepare_utterance,
                                           prepare_utterance_ids)
 

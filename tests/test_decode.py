@@ -5,19 +5,19 @@ import math
 import numpy as np
 import pytest
 
-from htk_tpu.algo.composite import build_composite
-from htk_tpu.algo.decode import decode
-from htk_tpu.algo.net import compile_network
-from htk_tpu.algo.viterbi import align
-from htk_tpu.io.dictionary import Vocab, read_dict, write_dict
-from htk_tpu.io.slf import read_slf, write_slf
-from htk_tpu.models.hmmset import compile_hmmset
-from htk_tpu.models.proto import clone_proto, make_proto
-from htk_tpu.tools.hbuild import word_loop_lattice
-from htk_tpu.tools.hresults import dp_align, strip_context
+from htk_jax.algo.composite import build_composite
+from htk_jax.algo.decode import decode
+from htk_jax.algo.net import compile_network
+from htk_jax.algo.viterbi import align
+from htk_jax.io.dictionary import Vocab, read_dict, write_dict
+from htk_jax.io.slf import read_slf, write_slf
+from htk_jax.models.hmmset import compile_hmmset
+from htk_jax.models.proto import clone_proto, make_proto
+from htk_jax.tools.hbuild import word_loop_lattice
+from htk_jax.tools.hresults import dp_align, strip_context
 
 from test_fb import numpy_fb_reference, small_set
-from htk_tpu.algo.trainer import prepare_utterance
+from htk_jax.algo.trainer import prepare_utterance
 
 
 def separable_set(dim=3, seed=0):
@@ -152,7 +152,7 @@ class TestHResults:
 
 class TestDecodeBatch:
     def test_batched_equals_sequential(self):
-        from htk_tpu.algo.decode import decode_batch
+        from htk_jax.algo.decode import decode_batch
 
         comp = separable_set()
         net = TestDecode().make_net(comp)
@@ -173,7 +173,7 @@ class TestDecodeBatch:
     def test_padding_never_leaks(self):
         """Same utterance decoded alone and alongside a much longer one
         (forcing heavy padding) must agree exactly."""
-        from htk_tpu.algo.decode import decode_batch
+        from htk_jax.algo.decode import decode_batch
 
         comp = separable_set()
         net = TestDecode().make_net(comp)
@@ -188,7 +188,7 @@ class TestDecodeBatch:
 
 class TestWordPairGrammar:
     def test_hbuild_w_constrains_pairs(self, tmp_path, monkeypatch):
-        from htk_tpu.tools import hbuild
+        from htk_jax.tools import hbuild
 
         monkeypatch.chdir(tmp_path)
         open("wp", "w").write(
@@ -220,7 +220,7 @@ class TestWordPairGrammar:
 
 class TestGenerateLattice:
     def _lat(self, lattice_beam):
-        from htk_tpu.algo.decode import generate_lattice
+        from htk_jax.algo.decode import generate_lattice
 
         comp = separable_set()
         net = TestDecode().make_net(comp)
@@ -246,7 +246,7 @@ class TestGenerateLattice:
                 assert lat.nodes[a.end].time <= 0.20
 
     def test_tight_beam_best_path_matches_1best(self):
-        from htk_tpu.algo.latops import best_path
+        from htk_jax.algo.latops import best_path
 
         lat, res = self._lat(lattice_beam=0.5)
         score, path = best_path(lat)
@@ -276,7 +276,7 @@ class TestGenericLatticeBatch:
                                               abs=1e-4)
 
     def test_batch_equals_sequential_with_results(self):
-        from htk_tpu.algo.decode import (generate_lattice,
+        from htk_jax.algo.decode import (generate_lattice,
                                          generate_lattice_batch)
 
         comp = separable_set()
@@ -304,7 +304,7 @@ class TestGenericLatticeBatch:
         instead of plane T — a branch arbitrary emit_frames lengths
         never hit. Trim the longest utterance to a multiple of 16 and
         assert batch == sequential including the 1-best."""
-        from htk_tpu.algo.decode import (generate_lattice,
+        from htk_jax.algo.decode import (generate_lattice,
                                          generate_lattice_batch)
 
         comp = separable_set()
@@ -330,7 +330,7 @@ class TestGenericLatticeBatch:
             assert rb.score == pytest.approx(rs.score, rel=1e-6)
 
     def test_batch_tight_beam_equals_sequential(self):
-        from htk_tpu.algo.decode import (generate_lattice,
+        from htk_jax.algo.decode import (generate_lattice,
                                          generate_lattice_batch)
 
         comp = separable_set()

@@ -3,14 +3,14 @@
 import numpy as np
 import pytest
 
-from htk_tpu.algo.fb_discrete import (DiscreteTrainer, discrete_state_scores,
+from htk_jax.algo.fb_discrete import (DiscreteTrainer, discrete_state_scores,
                                       reestimate_discrete)
-from htk_tpu.algo.trainer import prepare_utterance
-from htk_tpu.io.mmf import (dprob_to_logp, load_mmf, logp_to_dprob, save_mmf)
-from htk_tpu.models.hmmset import (compile_hmmset, write_back,
+from htk_jax.algo.trainer import prepare_utterance
+from htk_jax.io.mmf import (dprob_to_logp, load_mmf, logp_to_dprob, save_mmf)
+from htk_jax.models.hmmset import (compile_hmmset, write_back,
                                    write_back_discrete)
-from htk_tpu.models.proto import clone_proto, make_discrete_proto
-from htk_tpu.utils.logmath import LZERO
+from htk_jax.models.proto import clone_proto, make_discrete_proto
+from htk_jax.utils.logmath import LZERO
 
 
 def discrete_set(K=8, seed=0):

@@ -13,7 +13,7 @@ import os
 import numpy as np
 import pytest
 
-from htk_tpu.tools import hbuild, hcompv, hcopy, herest, hresults, hvite
+from htk_jax.tools import hbuild, hcompv, hcopy, herest, hresults, hvite
 
 from _synth import synth_utterance, write_wav  # noqa: F401
 
@@ -55,8 +55,8 @@ def corpus(tmp_path, monkeypatch):
     open("cfg_wav", "w").write("SOURCEFORMAT = WAV\nTARGETKIND = MFCC_E_D_A\n")
     open("cfg", "w").write("TARGETKIND = MFCC_E_D_A\n")
 
-    from htk_tpu.io.mmf import save_mmf
-    from htk_tpu.models.proto import make_proto
+    from htk_jax.io.mmf import save_mmf
+    from htk_jax.models.proto import make_proto
 
     save_mmf(make_proto(nstates=5, dim=39, parm_kind="MFCC_E_D_A"), "proto")
     return tmp_path
@@ -68,8 +68,8 @@ def test_full_pipeline(corpus, capsys):
         ["-C", "cfg", "-f", "0.01", "-m", "-M", "hmm0", "-S", "train.scp",
          "proto"]
     ) == 0
-    from htk_tpu.io.mmf import load_mmf, save_mmf
-    from htk_tpu.models.proto import clone_proto
+    from htk_jax.io.mmf import load_mmf, save_mmf
+    from htk_jax.models.proto import clone_proto
 
     hs = load_mmf("hmm0/proto")
     cl = clone_proto(hs, "proto", ["aa", "iy", "sil"])
@@ -104,9 +104,9 @@ def test_full_pipeline(corpus, capsys):
     out = capsys.readouterr().out
     assert "WORD: %Corr=100.00, Acc=100.00" in out
 
-    # HTKTPU: PRECISION = default relaxes the MXU matmul precision for
-    # the OutP path (bf16 inputs, f32 accumulate on TPU; no-op on CPU);
-    # recognition stays correct
+    # HTKTPU: PRECISION = default relaxes the matmul precision for the
+    # OutP path (TF32 on an H100; no-op on CPU); recognition stays
+    # correct
     open("cfg_fast", "w").write(
         "TARGETKIND = MFCC_E_D_A\nHTKTPU: PRECISION = default\n")
     assert hvite.run(
@@ -159,8 +159,8 @@ def test_hvite_output_format_flags(corpus, capsys):
     assert hcopy.run(["-C", "cfg_wav", "-S", "copy.scp"]) == 0
     assert hcompv.run(["-C", "cfg", "-f", "0.01", "-m", "-M", "hmm0",
                        "-S", "train.scp", "proto"]) == 0
-    from htk_tpu.io.mmf import load_mmf, save_mmf
-    from htk_tpu.models.proto import clone_proto
+    from htk_jax.io.mmf import load_mmf, save_mmf
+    from htk_jax.models.proto import clone_proto
 
     hs = load_mmf("hmm0/proto")
     cl = clone_proto(hs, "proto", ["aa", "iy", "sil"])
@@ -194,10 +194,10 @@ def test_herest_preload_compressed_equals_uncompressed(corpus, capsys):
     produces the same model as training from the uncompressed corpus up
     to the _C quantisation itself: compare against training on features
     read back from the SAME compressed files via the per-file reader."""
-    from htk_tpu.io.mmf import load_mmf
+    from htk_jax.io.mmf import load_mmf
 
-    from htk_tpu.io.mmf import save_mmf
-    from htk_tpu.models.proto import clone_proto
+    from htk_jax.io.mmf import save_mmf
+    from htk_jax.models.proto import clone_proto
 
     assert hcopy.run(["-C", "cfg_wav", "-S", "copy.scp"]) == 0
     assert hcompv.run(["-C", "cfg", "-f", "0.01", "-m", "-M", "hmm0",

@@ -4,7 +4,7 @@ import os
 
 import pytest
 
-from htk_tpu.tools import herest, hhed, hresults, hvite
+from htk_jax.tools import herest, hhed, hresults, hvite
 
 from test_e2e import corpus  # fixture: tiny synthetic corpus workdir
 from test_e2e import synth, write_wav  # noqa: F401
@@ -12,9 +12,9 @@ from test_e2e import synth, write_wav  # noqa: F401
 
 @pytest.fixture
 def trained(corpus):
-    from htk_tpu.io.mmf import load_mmf, save_mmf
-    from htk_tpu.models.proto import clone_proto
-    from htk_tpu.tools import hbuild, hcompv, hcopy
+    from htk_jax.io.mmf import load_mmf, save_mmf
+    from htk_jax.models.proto import clone_proto
+    from htk_jax.tools import hbuild, hcompv, hcopy
 
     assert hcopy.run(["-C", "cfg_wav", "-S", "copy.scp"]) == 0
     assert hcompv.run(["-C", "cfg", "-f", "0.01", "-m", "-M", "hmm0",
@@ -39,8 +39,8 @@ def test_hdecode_adaptation(trained, capsys):
     beats the unadapted decode (the `HTKLVRec/HDecode.c` -J chain)."""
     import numpy as np
 
-    from htk_tpu.io.htkfeat import read_htk_file, write_htk_file
-    from htk_tpu.tools import hdecode, lbuild
+    from htk_jax.io.htkfeat import read_htk_file, write_htk_file
+    from htk_jax.tools import hdecode, lbuild
 
     # speaker-shifted test channel: a constant offset per dim, sized to
     # the corpus' own std so unadapted decoding degrades but survives

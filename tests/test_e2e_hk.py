@@ -10,7 +10,7 @@ import os
 
 import pytest
 
-from htk_tpu.tools import (hbuild, hcompv, hcopy, herest, hhed, hquants,
+from htk_jax.tools import (hbuild, hcompv, hcopy, herest, hhed, hquants,
                            hresults, hvite)
 
 from test_e2e import corpus  # fixture: tiny synthetic corpus workdir
@@ -19,8 +19,8 @@ from test_e2e import synth, write_wav  # noqa: F401
 
 @pytest.fixture
 def trained(corpus):
-    from htk_tpu.io.mmf import load_mmf, save_mmf
-    from htk_tpu.models.proto import clone_proto
+    from htk_jax.io.mmf import load_mmf, save_mmf
+    from htk_jax.models.proto import clone_proto
 
     assert hcopy.run(["-C", "cfg_wav", "-S", "copy.scp"]) == 0
     assert hcompv.run(["-C", "cfg", "-f", "0.01", "-m", "-M", "hmm0",
@@ -40,8 +40,8 @@ def trained(corpus):
 
 
 def test_hk_discrete_conversion_chain(trained, capsys):
-    from htk_tpu.io.mmf import load_mmf
-    from htk_tpu.models.hmmset import compile_hmmset
+    from htk_jax.io.mmf import load_mmf
+    from htk_jax.models.hmmset import compile_hmmset
 
     # 1. VQ codebook over the training features
     assert hquants.run(["-C", "cfg", "-n", "1", "64", "cb.vq",
@@ -84,7 +84,7 @@ def test_hk_discrete_conversion_chain(trained, capsys):
 def test_hk_tiedhs_conversion_chain(trained, capsys):
     """HK TIEDHS: continuous -> tied-mixture pool, MMF round-trip
     (text + binary), retrain one iteration, decode at 100%."""
-    from htk_tpu.io.mmf import load_mmf, save_mmf
+    from htk_jax.io.mmf import load_mmf, save_mmf
 
     # JO sets the pool size + weight floor for the conversion (the HTK
     # tied-mixture join parameters); no config key needed

@@ -5,7 +5,7 @@ import os
 
 import pytest
 
-from htk_tpu.tools import (hbuild, hcompv, hcopy, herest, hnforward,
+from htk_jax.tools import (hbuild, hcompv, hcopy, herest, hnforward,
                            hntrainsgd, hresults, hvite)
 
 from test_e2e import corpus  # fixture: tiny synthetic corpus workdir
@@ -16,8 +16,8 @@ from test_e2e import synth, write_wav  # noqa: F401
 def trained(corpus):
     import numpy as np
 
-    from htk_tpu.io.mmf import load_mmf, save_mmf
-    from htk_tpu.models.proto import clone_proto
+    from htk_jax.io.mmf import load_mmf, save_mmf
+    from htk_jax.models.proto import clone_proto
 
     # the 6-utterance base corpus is enough for the GMM tests but
     # data-starves the DNN on realistic speech; add 6 more utterances

@@ -5,7 +5,7 @@ import os
 import numpy as np
 import pytest
 
-from htk_tpu.tools import hlrescore, hmmirest, hresults, hvite
+from htk_jax.tools import hlrescore, hmmirest, hresults, hvite
 
 from test_e2e import corpus  # fixture: tiny trained-ready corpus workdir
 from test_e2e import synth, write_wav  # noqa: F401
@@ -14,9 +14,9 @@ from test_e2e import synth, write_wav  # noqa: F401
 @pytest.fixture
 def trained(corpus):
     """Train 2 quick iterations so decode/lattices are meaningful."""
-    from htk_tpu.io.mmf import load_mmf, save_mmf
-    from htk_tpu.models.proto import clone_proto
-    from htk_tpu.tools import hbuild, hcompv, hcopy, herest
+    from htk_jax.io.mmf import load_mmf, save_mmf
+    from htk_jax.models.proto import clone_proto
+    from htk_jax.tools import hbuild, hcompv, hcopy, herest
 
     assert hcopy.run(["-C", "cfg_wav", "-S", "copy.scp"]) == 0
     assert hcompv.run(["-C", "cfg", "-f", "0.01", "-m", "-M", "hmm0",
@@ -78,8 +78,8 @@ def test_mpe_and_numlat_modes(trained, capsys):
     stay (numerically) where they were — a strong wiring invariant."""
     import numpy as np
 
-    from htk_tpu.io.mmf import load_mmf
-    from htk_tpu.models.hmmset import compile_hmmset
+    from htk_jax.io.mmf import load_mmf
+    from htk_jax.models.hmmset import compile_hmmset
 
     os.makedirs("lats", exist_ok=True)
     # -z decode gives both the lattices and a TIMED word-level MLF
@@ -154,7 +154,7 @@ def test_z_retry_ladder_writes_lattice(trained, monkeypatch, capsys):
     must get its .lat file too — downstream HMMIRest -r fails on a
     missing lattice. Force the prune-out by making the batched pass
     return nothing, so every utterance goes through the ladder."""
-    from htk_tpu.algo import decode as dmod
+    from htk_jax.algo import decode as dmod
 
     real_batch = dmod.generate_lattice_batch
 

@@ -4,7 +4,7 @@ import os
 
 import pytest
 
-from htk_tpu.tools import hhed, hresults, hvite
+from htk_jax.tools import hhed, hresults, hvite
 
 from test_e2e import corpus  # fixture: tiny synthetic corpus workdir
 from test_e2e import synth, write_wav  # noqa: F401
@@ -12,9 +12,9 @@ from test_e2e import synth, write_wav  # noqa: F401
 
 @pytest.fixture
 def trained(corpus):
-    from htk_tpu.io.mmf import load_mmf, save_mmf
-    from htk_tpu.models.proto import clone_proto
-    from htk_tpu.tools import hbuild, hcompv, hcopy, herest
+    from htk_jax.io.mmf import load_mmf, save_mmf
+    from htk_jax.models.proto import clone_proto
+    from htk_jax.tools import hbuild, hcompv, hcopy, herest
 
     assert hcopy.run(["-C", "cfg_wav", "-S", "copy.scp"]) == 0
     assert hcompv.run(["-C", "cfg", "-f", "0.01", "-m", "-M", "hmm0",
@@ -70,7 +70,7 @@ def test_hvite_cross_word_expansion(trained, capsys):
 
 
 def test_hdecode_cross_word_expansion(trained, capsys):
-    from htk_tpu.tools import hhed, lbuild, hdecode
+    from htk_jax.tools import hhed, lbuild, hdecode
 
     # cross-word triphone clones (exact copies)
     ctx = ["aa", "iy", "sil"]
@@ -98,7 +98,7 @@ def test_hdecode_cross_word_expansion(trained, capsys):
     assert hdecode.run(["-C", "cfgx", "-T", "1", "-w", "lm2.arpa",
                         "-p", "-8", "-i", "rechd.mlf", "-H", "tri0/hmmdefs",
                         "-S", "train.scp", "dict", "trilist"]) == 0
-    from htk_tpu.tools import hresults
+    from htk_jax.tools import hresults
     assert hresults.run(["-I", "words.mlf", "monophones", "rechd.mlf"]) == 0
     out = capsys.readouterr().out
     assert "WORD: %Corr=100.00" in out
@@ -107,7 +107,7 @@ def test_hdecode_cross_word_expansion(trained, capsys):
 def test_hdecode_lv_two_pass(trained, capsys):
     """LVDECODE=T: uniform-row pass-1 loop + lattice-constrained
     cross-word rescore must still decode the tiny corpus at 100%."""
-    from htk_tpu.tools import hhed, lbuild, hdecode, hresults
+    from htk_jax.tools import hhed, lbuild, hdecode, hresults
 
     ctx = ["aa", "iy", "sil"]
     tris = [f"{l}-{p}+{r}" for p in ("aa", "iy") for l in ctx for r in ctx]

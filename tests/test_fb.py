@@ -5,14 +5,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from htk_tpu.algo.composite import build_composite
-from htk_tpu.algo.fb import fb_utterance, fb_batch, zero_accs
-from htk_tpu.algo.reestimate import UpdateFlags, reestimate
-from htk_tpu.algo.trainer import Trainer, UttData, pad_batch, prepare_utterance
-from htk_tpu.io.mmf import load_mmf
-from htk_tpu.models.hmmset import compile_hmmset, write_back
-from htk_tpu.models.proto import clone_proto, make_proto
-from htk_tpu.utils.logmath import LZERO
+from htk_jax.algo.composite import build_composite
+from htk_jax.algo.fb import fb_utterance, fb_batch, zero_accs
+from htk_jax.algo.reestimate import UpdateFlags, reestimate
+from htk_jax.algo.trainer import Trainer, UttData, pad_batch, prepare_utterance
+from htk_jax.io.mmf import load_mmf
+from htk_jax.models.hmmset import compile_hmmset, write_back
+from htk_jax.models.proto import clone_proto, make_proto
+from htk_jax.utils.logmath import LZERO
 
 
 def logsumexp(a, axis=None):

@@ -11,10 +11,10 @@ import math
 import numpy as np
 import pytest
 
-from htk_tpu.io import parmkind as pk
-from htk_tpu.ops import dsp
-from htk_tpu.ops.dsp import FrontendConfig, compute_features
-from htk_tpu.utils.config import Config
+from htk_jax.io import parmkind as pk
+from htk_jax.ops import dsp
+from htk_jax.ops.dsp import FrontendConfig, compute_features
+from htk_jax.utils.config import Config
 
 
 def scalar_reference(samples, cfg: FrontendConfig):
@@ -194,14 +194,14 @@ class TestVTLN:
     """WARPFREQ piecewise-linear vocal-tract-length normalisation."""
 
     def _cfg(self, **kw):
-        from htk_tpu.ops.dsp import FrontendConfig
-        from htk_tpu.io.parmkind import str2parmkind
+        from htk_jax.ops.dsp import FrontendConfig
+        from htk_jax.io.parmkind import str2parmkind
 
         return FrontendConfig(target_kind=str2parmkind("MFCC_E"),
                               samp_period=625, **kw)
 
     def test_warp_function_endpoints_and_slope(self):
-        from htk_tpu.ops.dsp import _warp_freq
+        from htk_jax.ops.dsp import _warp_freq
 
         fl, fu, a, lo, hi = 300.0, 3000.0, 1.2, 0.0, 4000.0
         assert _warp_freq(lo, fl, fu, a, lo, hi) == pytest.approx(lo)
@@ -217,7 +217,7 @@ class TestVTLN:
         assert _warp_freq(1234.5, fl, fu, 1.0, lo, hi) == 1234.5
 
     def test_warped_filterbank_moves_channels(self):
-        from htk_tpu.ops.dsp import mel_weight_matrix
+        from htk_jax.ops.dsp import mel_weight_matrix
 
         W0 = mel_weight_matrix(self._cfg())
         W1 = mel_weight_matrix(self._cfg(warp_freq=1.1))
@@ -232,9 +232,9 @@ class TestVTLN:
     def test_hcopy_warp_config(self, tmp_path, monkeypatch):
         """WARPFREQ flows from config through HCopy (speaker-specific
         VTLN configs, the HTK recipe pattern)."""
-        from htk_tpu.io.htkfeat import read_htk_file
-        from htk_tpu.io.wavefile import Waveform, write_wave
-        from htk_tpu.tools import hcopy
+        from htk_jax.io.htkfeat import read_htk_file
+        from htk_jax.io.wavefile import Waveform, write_wave
+        from htk_jax.tools import hcopy
 
         monkeypatch.chdir(tmp_path)
         rng = np.random.default_rng(0)
@@ -254,7 +254,7 @@ class TestVTLN:
     def test_adddither_breaks_digital_silence(self):
         """ADDDITHER keeps log-energy finite on all-zero input and is
         reproducible (fixed seed)."""
-        from htk_tpu.ops.dsp import compute_features
+        from htk_jax.ops.dsp import compute_features
 
         z = np.zeros(16000, np.int16)
         f1 = compute_features(z, self._cfg(add_dither=1.0))
@@ -270,7 +270,7 @@ class TestBatchedFrontend:
         """compute_features_batch == compute_features per job, across
         mixed lengths (different frame buckets) and sample rates
         (different FrontendConfigs in one call)."""
-        from htk_tpu.ops.dsp import (FrontendConfig, compute_features,
+        from htk_jax.ops.dsp import (FrontendConfig, compute_features,
                                      compute_features_batch)
 
         rng = np.random.default_rng(5)
@@ -296,9 +296,9 @@ class TestBatchedFrontend:
         """The batched scp path matches one-pair-at-a-time runs to the
         batched-FFT tolerance; with HPARM: BATCHFRONTEND = F the scp run
         is byte-identical to the single-file runs."""
-        from htk_tpu.io.htkfeat import read_htk_file
-        from htk_tpu.io.wavefile import Waveform, write_wave
-        from htk_tpu.tools import hcopy
+        from htk_jax.io.htkfeat import read_htk_file
+        from htk_jax.io.wavefile import Waveform, write_wave
+        from htk_jax.tools import hcopy
 
         monkeypatch.chdir(tmp_path)
         rng = np.random.default_rng(6)
@@ -332,7 +332,7 @@ class TestBatchedFrontend:
         with trailing samples used to overflow the padded buffer
         (ValueError); trailing samples belong to no frame, so the result
         must equal the truncated waveform's."""
-        from htk_tpu.ops.dsp import (FrontendConfig, compute_features,
+        from htk_jax.ops.dsp import (FrontendConfig, compute_features,
                                      compute_features_batch, num_frames)
 
         kind = pk.str2parmkind("MFCC_E_D_A")
@@ -353,8 +353,8 @@ class TestBatchedFrontend:
         """The batched frontend writes the SAME bytes for a file no
         matter which other files share its chunk (fixed batch width +
         row-uniform kernels)."""
-        from htk_tpu.io.wavefile import Waveform, write_wave
-        from htk_tpu.tools import hcopy
+        from htk_jax.io.wavefile import Waveform, write_wave
+        from htk_jax.tools import hcopy
 
         monkeypatch.chdir(tmp_path)
         rng = np.random.default_rng(9)

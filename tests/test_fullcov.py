@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from htk_tpu.io.mmf import load_mmf, save_mmf
-from htk_tpu.models.hmmset import compile_hmmset
-from htk_tpu.models.proto import clone_proto, make_proto
-from htk_tpu.utils.errors import HTKError
+from htk_jax.io.mmf import load_mmf, save_mmf
+from htk_jax.models.hmmset import compile_hmmset
+from htk_jax.models.proto import clone_proto, make_proto
+from htk_jax.utils.errors import HTKError
 
 from test_decode import emit_frames, separable_set
 
@@ -46,7 +46,7 @@ def _to_fullc(hset, corr=0.0):
 
 
 def test_fullc_scores_match_f64_oracle():
-    from htk_tpu.ops.outp import full_cov_mix_scores
+    from htk_jax.ops.outp import full_cov_mix_scores
     import jax.numpy as jnp
 
     rng = np.random.default_rng(0)
@@ -78,10 +78,10 @@ def test_fullc_scores_match_f64_oracle():
 
 
 def test_fullc_diag_precision_decodes_like_diagc():
-    from htk_tpu.algo.decode import decode
-    from htk_tpu.algo.net import compile_network
-    from htk_tpu.io.dictionary import Vocab
-    from htk_tpu.tools.hbuild import word_loop_lattice
+    from htk_jax.algo.decode import decode
+    from htk_jax.algo.net import compile_network
+    from htk_jax.io.dictionary import Vocab
+    from htk_jax.tools.hbuild import word_loop_lattice
 
     comp_d = compile_hmmset(_diag_set())
     comp_f = compile_hmmset(_to_fullc(_diag_set()))
@@ -103,8 +103,8 @@ def test_fullc_diag_precision_decodes_like_diagc():
 
 
 def test_fullc_mmf_roundtrip_and_align(tmp_path):
-    from htk_tpu.algo.composite import build_composite
-    from htk_tpu.algo.viterbi import align
+    from htk_jax.algo.composite import build_composite
+    from htk_jax.algo.viterbi import align
 
     hs = _to_fullc(_diag_set(), corr=0.3)
     p = str(tmp_path / "hmmdefs")
@@ -122,7 +122,7 @@ def test_fullc_mmf_roundtrip_and_align(tmp_path):
 
 
 def test_fullc_training_rejected():
-    from htk_tpu.algo.trainer import Trainer
+    from htk_jax.algo.trainer import Trainer
 
     comp = compile_hmmset(_to_fullc(_diag_set()))
     with pytest.raises(HTKError):
@@ -134,7 +134,7 @@ class TestFullCovTraining:
         """separable_set converted to FULLC (inverse-covariance full
         matrices seeded from the diagonal model)."""
         from test_decode import separable_set  # noqa: F401
-        from htk_tpu.models.proto import clone_proto, make_proto
+        from htk_jax.models.proto import clone_proto, make_proto
 
         hs = make_proto(nstates=4, dim=dim, parm_kind="USER")
         cl = clone_proto(hs, "proto", ["a", "b"])
@@ -171,10 +171,10 @@ class TestFullCovTraining:
         return utts
 
     def test_em_improves_and_learns_offdiagonals(self):
-        from htk_tpu.algo.fullcov_train import (fullcov_accumulate,
+        from htk_jax.algo.fullcov_train import (fullcov_accumulate,
                                                 fullcov_update)
-        from htk_tpu.algo.trainer import prepare_utterance
-        from htk_tpu.models.hmmset import compile_hmmset
+        from htk_jax.algo.trainer import prepare_utterance
+        from htk_jax.models.hmmset import compile_hmmset
 
         hs = self._fullc_set()
         comp = compile_hmmset(hs)
@@ -201,10 +201,10 @@ class TestFullCovTraining:
 
     def test_herest_tool_fullc_training(self, tmp_path, monkeypatch,
                                         capsys):
-        from htk_tpu.io.htkfeat import write_htk_file
-        from htk_tpu.io.mmf import load_mmf, save_mmf
-        from htk_tpu.io.parmkind import str2parmkind
-        from htk_tpu.tools import herest
+        from htk_jax.io.htkfeat import write_htk_file
+        from htk_jax.io.mmf import load_mmf, save_mmf
+        from htk_jax.io.parmkind import str2parmkind
+        from htk_jax.tools import herest
 
         monkeypatch.chdir(tmp_path)
         hs = self._fullc_set()
@@ -238,7 +238,7 @@ class TestFullCovAdaptation:
     """MLLR mean adaptation on FULLC sets (the exact coupled-row solve)."""
 
     def _accs_for_target(self, comp, target, occ_per_mix=50.0):
-        from htk_tpu.algo.fb import Accumulators
+        from htk_jax.algo.fb import Accumulators
 
         M = comp.n_mix
         S, mm = comp.state_mix.shape
@@ -258,7 +258,7 @@ class TestFullCovAdaptation:
     def test_matches_rowwise_solution_on_diagonal_precisions(self):
         """With diagonal precisions the coupled D(D+1) system decouples
         into HAdapt's row-wise solves — both paths must agree."""
-        from htk_tpu.algo.adapt import estimate_mllr_mean
+        from htk_jax.algo.adapt import estimate_mllr_mean
 
         comp_d = compile_hmmset(_diag_set())
         comp_f = compile_hmmset(_to_fullc(_diag_set()))
@@ -274,7 +274,7 @@ class TestFullCovAdaptation:
         np.testing.assert_allclose(xf_f.b, xf_d.b, atol=1e-3)
 
     def test_exact_recovery_with_correlated_precisions(self):
-        from htk_tpu.algo.adapt import estimate_mllr_mean, estimate_mllr_var
+        from htk_jax.algo.adapt import estimate_mllr_mean, estimate_mllr_var
 
         hs = _to_fullc(_diag_set(), corr=0.4)
         # _diag_set means are constant across dims, which makes A
@@ -300,9 +300,9 @@ class TestFullCovAdaptation:
 
     def _fullc_decode_setup(self, shift):
         """FULLC models + word loop + a shifted test utterance on disk."""
-        from htk_tpu.io.htkfeat import write_htk_file
-        from htk_tpu.io.parmkind import str2parmkind
-        from htk_tpu.tools import hbuild
+        from htk_jax.io.htkfeat import write_htk_file
+        from htk_jax.io.parmkind import str2parmkind
+        from htk_jax.tools import hbuild
 
         save_mmf(_to_fullc(_diag_set(), corr=0.3), "hmmdefs")
         open("list", "w").write("aa\niy\nsil\n")
@@ -322,10 +322,10 @@ class TestFullCovAdaptation:
                                                     monkeypatch):
         """HERest -K on a FULLC set writes a MLLRMEAN TMF recovering the
         speaker shift; HVite -J decodes the shifted data with it."""
-        from htk_tpu.algo.adapt import load_tmf
-        from htk_tpu.io.htkfeat import write_htk_file
-        from htk_tpu.io.parmkind import str2parmkind
-        from htk_tpu.tools import herest, hvite
+        from htk_jax.algo.adapt import load_tmf
+        from htk_jax.io.htkfeat import write_htk_file
+        from htk_jax.io.parmkind import str2parmkind
+        from htk_jax.tools import herest, hvite
 
         monkeypatch.chdir(tmp_path)
         shift = np.array([1.5, -1.0, 0.8], np.float32)
@@ -363,8 +363,8 @@ class TestFullCovAdaptation:
         set must NOT drop the full-covariance scorer (it used to clear
         fc_proj and decode against the placeholder diagonal variances).
         An identity CMLLR must reproduce the unadapted path score."""
-        from htk_tpu.algo.adapt import Transform, save_tmf
-        from htk_tpu.tools import hvite
+        from htk_jax.algo.adapt import Transform, save_tmf
+        from htk_jax.tools import hvite
 
         monkeypatch.chdir(tmp_path)
         self._fullc_decode_setup(shift=0.0)
@@ -390,8 +390,8 @@ class TestFullCovAdaptation:
         assert s1 == pytest.approx(s0, abs=0.02)
 
     def test_hvite_rejects_mllrcov_on_fullc(self, tmp_path, monkeypatch):
-        from htk_tpu.algo.adapt import Transform, save_tmf
-        from htk_tpu.tools import hvite
+        from htk_jax.algo.adapt import Transform, save_tmf
+        from htk_jax.tools import hvite
 
         monkeypatch.chdir(tmp_path)
         self._fullc_decode_setup(shift=0.0)

@@ -15,7 +15,7 @@ import os
 import numpy as np
 import pytest
 
-from htk_tpu.utils.errors import HTKError
+from htk_jax.utils.errors import HTKError
 
 
 def _mutations(blob: bytes, n_trunc=12, n_flip=24, seed=0):
@@ -55,8 +55,8 @@ def _assert_reader_contained(reader, blob, tmp_path, name):
 
 
 def test_fuzz_htk_feature_file(tmp_path):
-    from htk_tpu.io.htkfeat import read_htk_file, write_htk_file
-    from htk_tpu.io.parmkind import str2parmkind
+    from htk_jax.io.htkfeat import read_htk_file, write_htk_file
+    from htk_jax.io.parmkind import str2parmkind
 
     x = np.random.default_rng(0).normal(size=(20, 6)).astype(np.float32)
     p = str(tmp_path / "a.mfc")
@@ -66,8 +66,8 @@ def test_fuzz_htk_feature_file(tmp_path):
 
 
 def test_fuzz_htk_feature_file_compressed(tmp_path):
-    from htk_tpu.io.htkfeat import read_htk_file, write_htk_file
-    from htk_tpu.io.parmkind import str2parmkind
+    from htk_jax.io.htkfeat import read_htk_file, write_htk_file
+    from htk_jax.io.parmkind import str2parmkind
 
     x = (np.random.default_rng(1).normal(size=(30, 4)) * 4).astype(
         np.float32)
@@ -78,7 +78,7 @@ def test_fuzz_htk_feature_file_compressed(tmp_path):
 
 
 def test_fuzz_mlf(tmp_path):
-    from htk_tpu.io.mlf import MLF
+    from htk_jax.io.mlf import MLF
 
     blob = (b'#!MLF!#\n"*/u0.lab"\n0 1000000 aa -1.5\nsil\n.\n'
             b'"*/u1.lab"\nbb\ncc\n.\n')
@@ -87,7 +87,7 @@ def test_fuzz_mlf(tmp_path):
 
 
 def test_fuzz_arpa_and_binary_lm(tmp_path):
-    from htk_tpu.io import lm as lmmod
+    from htk_jax.io import lm as lmmod
 
     arpa = (b"\\data\\\nngram 1=3\nngram 2=2\n\n\\1-grams:\n"
             b"-1 a -0.3\n-1 b -0.2\n-2 c\n\n\\2-grams:\n"
@@ -112,7 +112,7 @@ def test_fuzz_arpa_and_binary_lm(tmp_path):
 
 
 def test_fuzz_matrix_bigram(tmp_path):
-    from htk_tpu.io import lm as lmmod
+    from htk_jax.io import lm as lmmod
 
     lm = lmmod.NGramLM(order=2)
     lm.unigrams = {"a": (-1.0, 0.0), "b": (-1.0, 0.0)}
@@ -124,14 +124,14 @@ def test_fuzz_matrix_bigram(tmp_path):
 
 
 def test_fuzz_dictionary(tmp_path):
-    from htk_tpu.io.dictionary import read_dict
+    from htk_jax.io.dictionary import read_dict
 
     blob = (b"a  [A] 0.9 aa ax\nb  b iy\nc  [C] c aa c\n")
     _assert_reader_contained(read_dict, blob, tmp_path, "d.dict")
 
 
 def test_fuzz_slf(tmp_path):
-    from htk_tpu.io.slf import read_slf
+    from htk_jax.io.slf import read_slf
 
     blob = (b"VERSION=1.0\nN=3 L=2\n"
             b"I=0 t=0.0\nI=1 t=0.5 W=hello\nI=2 t=1.0 W=world\n"
@@ -140,8 +140,8 @@ def test_fuzz_slf(tmp_path):
 
 
 def test_fuzz_mmf_text_and_binary(tmp_path):
-    from htk_tpu.io.mmf import load_mmf, save_mmf
-    from htk_tpu.models.proto import clone_proto, make_proto
+    from htk_jax.io.mmf import load_mmf, save_mmf
+    from htk_jax.models.proto import clone_proto, make_proto
 
     hs = make_proto(nstates=4, dim=3, parm_kind="USER")
     cl = clone_proto(hs, "proto", ["aa", "bb"])
@@ -156,7 +156,7 @@ def test_fuzz_mmf_text_and_binary(tmp_path):
 
 
 def test_fuzz_wave(tmp_path):
-    from htk_tpu.io.wavefile import Waveform, read_wave, write_wave
+    from htk_jax.io.wavefile import Waveform, read_wave, write_wave
 
     x = (np.random.default_rng(2).normal(size=400) * 3000).astype(
         np.int16)
@@ -172,14 +172,14 @@ def test_fuzz_wave(tmp_path):
 
 
 def test_fuzz_hmm_list(tmp_path):
-    from htk_tpu.io.mmf import load_hmm_list
+    from htk_jax.io.mmf import load_hmm_list
 
     blob = b"aa\nbb phys\ncc\n"
     _assert_reader_contained(load_hmm_list, blob, tmp_path, "list")
 
 
 def test_fuzz_vq_table(tmp_path):
-    from htk_tpu.io.vq import VQTable, load_vq, save_vq
+    from htk_jax.io.vq import VQTable, load_vq, save_vq
 
     rng = np.random.default_rng(7)
     vq = VQTable(codebooks=[rng.normal(size=(8, 4)).astype(np.float32)])
@@ -190,7 +190,7 @@ def test_fuzz_vq_table(tmp_path):
 
 
 def test_fuzz_gram_file(tmp_path):
-    from htk_tpu.tools.lgram import read_gram, write_gram
+    from htk_jax.tools.lgram import read_gram, write_gram
 
     try:
         from collections import Counter
@@ -205,7 +205,7 @@ def test_fuzz_gram_file(tmp_path):
 
 
 def test_fuzz_tmf(tmp_path):
-    from htk_tpu.algo.adapt import Transform, load_tmf, save_tmf
+    from htk_jax.algo.adapt import Transform, load_tmf, save_tmf
 
     p = str(tmp_path / "t.tmf")
     save_tmf(p, "spk01", Transform(kind="MLLRMEAN", A=np.eye(3),
@@ -215,7 +215,7 @@ def test_fuzz_tmf(tmp_path):
 
 
 def test_fuzz_baseclass(tmp_path):
-    from htk_tpu.algo.adapt import load_baseclass
+    from htk_jax.algo.adapt import load_baseclass
 
     blob = (b"~b \"global\"\n<MMFIDMASK> *\n<PARAMETERS> MIXBASE\n"
             b"<NUMCLASSES> 1\n<CLASS> 1 {*.state[2-4].mix[1-8]}\n")

@@ -1,7 +1,7 @@
 """Externally-grounded frontend parity (round-1 verdict item 6).
 
 tests/golden/mfcc_golden.npz is generated by tests/golden/gen_mfcc_golden.py,
-a standalone script that imports NOTHING from htk_tpu and implements the
+a standalone script that imports NOTHING from htk_jax and implements the
 published HTKBook chapter-5 formulas (mel scale, triangular filterbank,
 DCT, liftering, raw energy + ENORMALISE, CMN, regression deltas) as
 per-frame scalar float64 code over realistic synthesized speech (glottal
@@ -27,9 +27,9 @@ import os
 import numpy as np
 import pytest
 
-from htk_tpu.io import parmkind as pk
-from htk_tpu.ops import dsp
-from htk_tpu.ops.dsp import FrontendConfig, compute_features
+from htk_jax.io import parmkind as pk
+from htk_jax.ops import dsp
+from htk_jax.ops.dsp import FrontendConfig, compute_features
 
 HERE = os.path.dirname(__file__)
 NPZ = os.path.join(HERE, "golden", "mfcc_golden.npz")

@@ -3,13 +3,13 @@
 import numpy as np
 import pytest
 
-from htk_tpu.algo.tree import (Question, build_tree, classify, load_trees,
+from htk_jax.algo.tree import (Question, build_tree, classify, load_trees,
                                parse_triphone, save_trees, state_stats)
-from htk_tpu.io.mmf import load_mmf, save_mmf
-from htk_tpu.models.hmmset import compile_hmmset
-from htk_tpu.models.itemlist import parse_item_list
-from htk_tpu.models.proto import clone_proto, make_proto
-from htk_tpu.tools.hhed import Editor, run_script
+from htk_jax.io.mmf import load_mmf, save_mmf
+from htk_jax.models.hmmset import compile_hmmset
+from htk_jax.models.itemlist import parse_item_list
+from htk_jax.models.proto import clone_proto, make_proto
+from htk_jax.tools.hhed import Editor, run_script
 
 
 def mono_set(names=("aa", "iy", "sil"), dim=4, seed=0):
@@ -170,7 +170,7 @@ class TestCompactMixdown:
 
 class TestStreamSplit:
     def test_ss_splits_and_trains(self):
-        from htk_tpu.algo.trainer import Trainer, prepare_utterance
+        from htk_jax.algo.trainer import Trainer, prepare_utterance
 
         hs = mono_set()
         ed = Editor(hs)
@@ -188,7 +188,7 @@ class TestStreamSplit:
         assert float(np.asarray(accs.n_utts)) == 1
 
     def test_sw_shrink_and_grow(self):
-        from htk_tpu.algo.trainer import Trainer, prepare_utterance
+        from htk_jax.algo.trainer import Trainer, prepare_utterance
 
         hs = mono_set()
         ed = Editor(hs)
@@ -218,7 +218,7 @@ class TestStreamSplit:
         assert float(np.asarray(accs.total_logp)) < 0
 
     def test_sw_bad_stream_errors(self):
-        from htk_tpu.utils.errors import HTKError
+        from htk_jax.utils.errors import HTKError
 
         hs = mono_set()
         ed = Editor(hs)
@@ -228,7 +228,7 @@ class TestStreamSplit:
 
 class TestRegClasses:
     def test_rc_builds_and_roundtrips(self, tmp_path):
-        from htk_tpu.algo.adapt import load_baseclass, save_baseclass
+        from htk_jax.algo.adapt import load_baseclass, save_baseclass
 
         hs = mono_set()
         ed = Editor(hs)
@@ -254,7 +254,7 @@ class TestRegClasses:
 
 class TestNCUTFVRN:
     def test_nc_clusters_and_ties(self):
-        from htk_tpu.tools.hhed import Editor, run_script
+        from htk_jax.tools.hhed import Editor, run_script
 
         hs = mono_set(names=("a1", "a2", "a3", "a4", "a5", "a6"))
         # make a1-a3 near one centre and a4-a6 near another
@@ -275,7 +275,7 @@ class TestNCUTFVRN:
         assert s[0] is not s[3]
 
     def test_ut_unties(self):
-        from htk_tpu.tools.hhed import Editor, run_script
+        from htk_jax.tools.hhed import Editor, run_script
 
         hs = mono_set()
         ed = Editor(hs)
@@ -290,8 +290,8 @@ class TestNCUTFVRN:
             hs.hmms["iy"].states[0].streams[0].mixes[0].mean)
 
     def test_fv_floors_and_rn(self, tmp_path):
-        from htk_tpu.io.mmf import save_mmf
-        from htk_tpu.tools.hhed import Editor, run_script
+        from htk_jax.io.mmf import save_mmf
+        from htk_jax.tools.hhed import Editor, run_script
 
         hs = mono_set()
         # a vFloors-style set whose floor exceeds some variances
@@ -310,8 +310,8 @@ class TestFCSKFAMM:
     def test_fc_preserves_likelihood_until_retrained(self, tmp_path):
         """FC seeds INVCOVAR = diag(1/var): alignment scores must be
         unchanged, and the saved set must round-trip as FULLC."""
-        from htk_tpu.algo.composite import build_composite
-        from htk_tpu.algo.viterbi import align
+        from htk_jax.algo.composite import build_composite
+        from htk_jax.algo.viterbi import align
 
         hs = mono_set()
         rng = np.random.default_rng(4)
@@ -336,7 +336,7 @@ class TestFCSKFAMM:
         assert compile_hmmset(load_mmf(p)).full_cov
 
     def test_sk_changes_parm_kind(self, tmp_path):
-        from htk_tpu.io.parmkind import str2parmkind
+        from htk_jax.io.parmkind import str2parmkind
 
         hs = mono_set()
         run_script("SK MFCC_E_D_A", Editor(hs))
@@ -401,7 +401,7 @@ class TestTCDPXFSUPS:
         assert s2[0] is not s2[1]
 
     def test_mt_makes_triphones_from_biphones(self, tmp_path):
-        from htk_tpu.utils.errors import HTKError
+        from htk_jax.utils.errors import HTKError
 
         hs = mono_set(names=("a-b", "b+c", "b", "a", "c"))
         tri = tmp_path / "tri"
@@ -460,7 +460,7 @@ class TestTCDPXFSUPS:
                        for n in hs.hmms)
 
     def test_xf_attaches_and_roundtrips(self, tmp_path):
-        from htk_tpu.algo.adapt import Transform, save_tmf
+        from htk_jax.algo.adapt import Transform, save_tmf
 
         hs = mono_set()
         tmf = str(tmp_path / "in.tmf")
@@ -489,7 +489,7 @@ class TestTCDPXFSUPS:
         assert si.streams[1].mixes[0].mean.shape == (1,)
 
     def test_su_bad_widths_error(self):
-        from htk_tpu.utils.errors import HTKError
+        from htk_jax.utils.errors import HTKError
 
         hs = mono_set()
         ed = Editor(hs)

@@ -4,9 +4,9 @@ import os
 
 import pytest
 
-from htk_tpu.io.dictionary import read_dict
-from htk_tpu.tools import hlmcopy
-from htk_tpu.utils.errors import HTKError
+from htk_jax.io.dictionary import read_dict
+from htk_jax.tools import hlmcopy
+from htk_jax.utils.errors import HTKError
 
 
 @pytest.fixture

@@ -5,9 +5,9 @@ import os
 import numpy as np
 import pytest
 
-from htk_tpu.io.mlf import load_label_file
-from htk_tpu.tools import hslab
-from htk_tpu.utils.graf import HGraf
+from htk_jax.io.mlf import load_label_file
+from htk_jax.tools import hslab
+from htk_jax.utils.graf import HGraf
 
 from _synth import write_wav
 

@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from htk_tpu.io import parmkind as pk
-from htk_tpu.io.htkfeat import read_htk_file, write_htk_file
-from htk_tpu.io.wavefile import Waveform, read_wave, write_wave
-from htk_tpu.utils.errors import HTKError
+from htk_jax.io import parmkind as pk
+from htk_jax.io.htkfeat import read_htk_file, write_htk_file
+from htk_jax.io.wavefile import Waveform, read_wave, write_wave
+from htk_jax.utils.errors import HTKError
 
 
 class TestParmKind:
@@ -156,7 +156,7 @@ class TestLegacyWaveFormats:
         return (rng.integers(-3000, 3000, size=n)).astype(np.int16)
 
     def test_scribe_headerless(self, tmp_path):
-        from htk_tpu.io.wavefile import read_wave
+        from htk_jax.io.wavefile import read_wave
 
         x = self._pcm()
         p = str(tmp_path / "a.scr")
@@ -168,7 +168,7 @@ class TestLegacyWaveFormats:
     def test_timit_and_ogi_headers(self, tmp_path):
         import struct
 
-        from htk_tpu.io.wavefile import read_wave
+        from htk_jax.io.wavefile import read_wave
 
         x = self._pcm(48)
         for fmt, e in (("TIMIT", "<"), ("OGI", ">")):
@@ -181,7 +181,7 @@ class TestLegacyWaveFormats:
             np.testing.assert_array_equal(w.samples, x)
 
     def test_sdes1_header_skip(self, tmp_path):
-        from htk_tpu.io.wavefile import read_wave
+        from htk_jax.io.wavefile import read_wave
 
         x = self._pcm(32)
         p = str(tmp_path / "a.sd")
@@ -195,7 +195,7 @@ class TestEsig:
     """ESIG (Entropic Esignal) container: io/esignal.py (esignal.c role)."""
 
     def test_roundtrip_archs(self, tmp_path):
-        from htk_tpu.io.esignal import read_esig, write_esig
+        from htk_jax.io.esignal import read_esig, write_esig
 
         rng = np.random.default_rng(0)
         feats = rng.normal(size=(20, 13)).astype(np.float32)
@@ -208,8 +208,8 @@ class TestEsig:
             np.testing.assert_allclose(ef.data, feats, rtol=1e-6)
 
     def test_waveform_short(self, tmp_path):
-        from htk_tpu.io.esignal import read_esig, write_esig
-        from htk_tpu.io.wavefile import read_wave
+        from htk_jax.io.esignal import read_esig, write_esig
+        from htk_jax.io.wavefile import read_wave
 
         x = (np.sin(np.arange(400) / 5.0) * 8000).astype(np.int16)
         p = str(tmp_path / "w.esig")
@@ -222,8 +222,8 @@ class TestEsig:
         np.testing.assert_array_equal(wv.samples, x)
 
     def test_hlist_prints_esig(self, tmp_path, capsys, monkeypatch):
-        from htk_tpu.io.esignal import write_esig
-        from htk_tpu.tools import hlist
+        from htk_jax.io.esignal import write_esig
+        from htk_jax.tools import hlist
 
         monkeypatch.chdir(tmp_path)
         rng = np.random.default_rng(1)
@@ -240,7 +240,7 @@ class TestIOFilters:
     """HShell xxFILTER channels (utils/filters.py)."""
 
     def _cfg(self, **kv):
-        from htk_tpu.utils.config import Config
+        from htk_jax.utils.config import Config
 
         c = Config()
         for k, v in kv.items():
@@ -250,7 +250,7 @@ class TestIOFilters:
     def test_parm_filter_decompresses(self, tmp_path, monkeypatch):
         import gzip
 
-        from htk_tpu.tools._common import open_speech_file
+        from htk_jax.tools._common import open_speech_file
 
         monkeypatch.chdir(tmp_path)
         x = np.random.default_rng(0).normal(size=(12, 5)).astype(np.float32)
@@ -264,7 +264,7 @@ class TestIOFilters:
     def test_wave_filter_and_stdin_form(self, tmp_path, monkeypatch):
         import gzip
 
-        from htk_tpu.tools._common import open_speech_file
+        from htk_jax.tools._common import open_speech_file
 
         monkeypatch.chdir(tmp_path)
         rng = np.random.default_rng(1)
@@ -284,7 +284,7 @@ class TestIOFilters:
     def test_label_filter_on_mlf(self, tmp_path, monkeypatch):
         import gzip
 
-        from htk_tpu.io.mlf import MLF
+        from htk_jax.io.mlf import MLF
 
         monkeypatch.chdir(tmp_path)
         gzip.open("l.mlf.gz", "wt").write(
@@ -294,7 +294,7 @@ class TestIOFilters:
         assert pats == ["*/u1.lab"]
 
     def test_filter_failure_is_numbered(self, tmp_path, monkeypatch):
-        from htk_tpu.utils.filters import maybe_filter
+        from htk_jax.utils.filters import maybe_filter
 
         monkeypatch.chdir(tmp_path)
         open("x", "w").write("hi")
@@ -304,7 +304,7 @@ class TestIOFilters:
         assert "+1013" in str(ei.value) or "1013" in str(ei.value)
 
     def test_no_filter_is_identity(self, tmp_path):
-        from htk_tpu.utils.filters import maybe_filter
+        from htk_jax.utils.filters import maybe_filter
 
         p = str(tmp_path / "y")
         open(p, "w").write("z")
@@ -316,8 +316,8 @@ class TestIOFilters:
         it back bit-identically."""
         import gzip
 
-        from htk_tpu.tools import hcopy
-        from htk_tpu.tools._common import open_speech_file
+        from htk_jax.tools import hcopy
+        from htk_jax.tools._common import open_speech_file
 
         monkeypatch.chdir(tmp_path)
         x = np.random.default_rng(2).normal(size=(9, 6)).astype(np.float32)
@@ -333,7 +333,7 @@ class TestIOFilters:
     def test_label_output_filter(self, tmp_path, monkeypatch):
         import gzip
 
-        from htk_tpu.io.mlf import MLF, Label, Transcription
+        from htk_jax.io.mlf import MLF, Label, Transcription
 
         monkeypatch.chdir(tmp_path)
         m = MLF()

@@ -5,10 +5,10 @@ import math
 import numpy as np
 import pytest
 
-from htk_tpu.algo.ebw import EBWConfig, ebw_update
-from htk_tpu.algo.fb import Accumulators
-from htk_tpu.algo.latops import arc_posteriors, best_path, prune, topo_order
-from htk_tpu.io.slf import Lattice, LArc, LNode, NULL_WORD
+from htk_jax.algo.ebw import EBWConfig, ebw_update
+from htk_jax.algo.fb import Accumulators
+from htk_jax.algo.latops import arc_posteriors, best_path, prune, topo_order
+from htk_jax.io.slf import Lattice, LArc, LNode, NULL_WORD
 
 from test_fb import small_set
 
@@ -59,7 +59,7 @@ class TestLatOps:
         assert "a" in words
 
     def test_cycle_detection(self):
-        from htk_tpu.utils.errors import HTKError
+        from htk_jax.utils.errors import HTKError
 
         lat = diamond_lattice()
         lat.arcs.append(LArc(id=4, start=3, end=0))
@@ -132,8 +132,8 @@ class TestEBW:
 class TestMPE:
     def test_mpe_weights_sign(self):
         """Correct arc gets positive MPE weight, wrong arc negative."""
-        from htk_tpu.algo.latops import arc_mpe_weights
-        from htk_tpu.io.slf import Lattice, LArc, LNode, NULL_WORD
+        from htk_jax.algo.latops import arc_mpe_weights
+        from htk_jax.io.slf import Lattice, LArc, LNode, NULL_WORD
 
         lat = Lattice()
         lat.nodes = [
@@ -158,8 +158,8 @@ class TestMPE:
 
     def test_mpe_zero_when_certain(self):
         """A lattice with only the correct path yields ~zero weights."""
-        from htk_tpu.algo.latops import arc_mpe_weights
-        from htk_tpu.io.slf import Lattice, LArc, LNode, NULL_WORD
+        from htk_jax.algo.latops import arc_mpe_weights
+        from htk_jax.io.slf import Lattice, LArc, LNode, NULL_WORD
 
         lat = Lattice()
         lat.nodes = [
@@ -178,7 +178,7 @@ class TestMPE:
 
 class TestOracleError:
     def _lat(self):
-        from htk_tpu.io.slf import Lattice, LArc, LNode, NULL_WORD
+        from htk_jax.io.slf import Lattice, LArc, LNode, NULL_WORD
 
         lat = Lattice()
         lat.nodes = [LNode(id=0, word=NULL_WORD),
@@ -192,14 +192,14 @@ class TestOracleError:
         return lat
 
     def test_oracle_zero_when_path_exists(self):
-        from htk_tpu.algo.latops import oracle_error
+        from htk_jax.algo.latops import oracle_error
 
         lat = self._lat()
         assert oracle_error(lat, ["A", "C"]) == (0, 2)
         assert oracle_error(lat, ["B", "C"]) == (0, 2)
 
     def test_oracle_counts_min_edits(self):
-        from htk_tpu.algo.latops import oracle_error
+        from htk_jax.algo.latops import oracle_error
 
         lat = self._lat()
         # best path differs by one substitution

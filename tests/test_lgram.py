@@ -4,8 +4,8 @@ import os
 
 import pytest
 
-from htk_tpu.tools import lbuild
-from htk_tpu.tools.lgram import (WordMap, read_gram, run_lfof, run_lgcopy,
+from htk_jax.tools import lbuild
+from htk_jax.tools.lgram import (WordMap, read_gram, run_lfof, run_lgcopy,
                                  run_lgprep, run_lnewmap)
 
 TEXT1 = "a b a\nb b\n"
@@ -90,7 +90,7 @@ def test_lbuild_from_grams_matches_text(work):
 
 
 def test_lglist_dumps_and_fof(work, capsys):
-    from htk_tpu.tools.lgram import run_lglist
+    from htk_jax.tools.lgram import run_lglist
 
     assert run_lgprep(["-n", "2", "-r", "g1", "wmap", "t1.txt"]) == 0
     assert run_lglist(["wmap", "g1.2gram"]) == 0
@@ -105,9 +105,9 @@ def test_lglist_dumps_and_fof(work, capsys):
 
 
 def test_llink_composes_word_lm(work):
-    from htk_tpu.io.lm import read_lm
-    from htk_tpu.tools.cluster import run as run_cluster
-    from htk_tpu.tools.cluster import run_llink
+    from htk_jax.io.lm import read_lm
+    from htk_jax.tools.cluster import run as run_cluster
+    from htk_jax.tools.cluster import run_llink
 
     # cluster on t1, then re-link fresh counts from t2 under that map
     assert run_cluster(["-c", "2", "wmap", "cmap", "t1.txt"]) == 0

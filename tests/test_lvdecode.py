@@ -4,12 +4,12 @@ equivalence with the general decoder, lattices, batching."""
 import numpy as np
 import pytest
 
-from htk_tpu.algo.decode import decode, decode_batch, generate_lattice
-from htk_tpu.algo.lvnet import compile_lv_loop, lm_loop_matrices
-from htk_tpu.algo.net import compile_network
-from htk_tpu.io.dictionary import Vocab
-from htk_tpu.io.lm import NGramLM
-from htk_tpu.tools.hbuild import bigram_lattice, word_loop_lattice
+from htk_jax.algo.decode import decode, decode_batch, generate_lattice
+from htk_jax.algo.lvnet import compile_lv_loop, lm_loop_matrices
+from htk_jax.algo.net import compile_network
+from htk_jax.io.dictionary import Vocab
+from htk_jax.io.lm import NGramLM
+from htk_jax.tools.hbuild import bigram_lattice, word_loop_lattice
 
 from test_decode import emit_frames, separable_set
 
@@ -112,7 +112,7 @@ class TestLVPruning:
 
 class TestLVLattice:
     def test_lattice_best_path_matches(self):
-        from htk_tpu.algo.latops import best_path
+        from htk_jax.algo.latops import best_path
 
         comp = separable_set()
         net = compile_lv_loop(["A", "I", "S"], make_vocab(), comp,
@@ -156,7 +156,7 @@ class TestLVBatch:
                                               abs=1e-4)
 
     def test_lattice_batch_equals_sequential(self):
-        from htk_tpu.algo.decode import generate_lattice_batch
+        from htk_jax.algo.decode import generate_lattice_batch
 
         comp = separable_set()
         net = compile_lv_loop(["A", "I", "S"], make_vocab(), comp,
@@ -177,7 +177,7 @@ class TestLVBatch:
         """A tight lattice beam forces transitive predecessor
         resurrection through the on-device planes; results must still
         match the sequential builder."""
-        from htk_tpu.algo.decode import generate_lattice_batch
+        from htk_jax.algo.decode import generate_lattice_batch
 
         comp = separable_set()
         net = compile_lv_loop(["A", "I", "S"], make_vocab(), comp,
@@ -195,7 +195,7 @@ class TestLVBatch:
     def test_lattice_batch_want_results(self):
         """want_results: the batched 1-best (walked from the compacted
         record planes) equals sequential want_result exactly."""
-        from htk_tpu.algo.decode import (generate_lattice,
+        from htk_jax.algo.decode import (generate_lattice,
                                          generate_lattice_batch)
 
         comp = separable_set()
@@ -221,8 +221,8 @@ class TestLVBatch:
         """A record budget below the in-beam count drops the WEAKEST
         records (global-beam-style degradation), warns 8523, and the
         lattice's best path still equals the 1-best decode."""
-        from htk_tpu.algo.decode import generate_lattice_batch
-        from htk_tpu.algo.latops import best_path
+        from htk_jax.algo.decode import generate_lattice_batch
+        from htk_jax.algo.latops import best_path
 
         comp = separable_set()
         net = compile_lv_loop(["A", "I", "S"], make_vocab(), comp,
@@ -246,8 +246,8 @@ class TestLVBatch:
     def test_lattice_batch_topk_cap(self):
         """k_lat below the row count still produces a usable lattice
         whose best path equals the 1-best decode."""
-        from htk_tpu.algo.decode import generate_lattice_batch
-        from htk_tpu.algo.latops import best_path
+        from htk_jax.algo.decode import generate_lattice_batch
+        from htk_jax.algo.latops import best_path
 
         comp = separable_set()
         net = compile_lv_loop(["A", "I", "S"], make_vocab(), comp,
@@ -339,7 +339,7 @@ class TestFactoredCrossWord:
                               factored=True)
         x = net.xw_backoff
         # row 1 (word I) has no explicit pred from row 0 (word A)
-        from htk_tpu.algo.decode import _host_lm_lookup
+        from htk_jax.algo.decode import _host_lm_lookup
         lm_of = _host_lm_lookup(net)
         assert lm_of(0, 1) == pytest.approx(lm.logp_bi("A", "I"), abs=1e-5)
         assert lm_of(0, 2) == pytest.approx(lm.logp_bi("A", "S"), abs=1e-5)
@@ -353,7 +353,7 @@ class TestBatchedUniformScan:
         import jax
         import jax.numpy as jnp
 
-        from htk_tpu.algo.decode import (_net_dev, decode_scan_uniform,
+        from htk_jax.algo.decode import (_net_dev, decode_scan_uniform,
                                          decode_scan_uniform_batch)
 
         comp = separable_set()
@@ -379,29 +379,13 @@ class TestBatchedUniformScan:
         assert np.array_equal(np.asarray(p2), np.asarray(p1))
         assert np.array_equal(np.asarray(q2), np.asarray(q1))
 
-    def test_maxplus_kernel_interpret(self):
-        import jax.numpy as jnp
-
-        from htk_tpu.ops.maxplus_pallas import maxplus_matvec
-
-        rng = np.random.default_rng(3)
-        B, C = 5, 200
-        WE = rng.normal(size=(B, C)).astype(np.float32)
-        tr = rng.normal(size=(C, C)).astype(np.float32)
-        e, a = maxplus_matvec(jnp.asarray(WE), jnp.asarray(tr),
-                              interpret=True)
-        ref = (WE[:, :, None] + tr[None]).max(axis=1)
-        refa = (WE[:, :, None] + tr[None]).argmax(axis=1)
-        np.testing.assert_allclose(np.asarray(e), ref, atol=1e-6)
-        assert np.array_equal(np.asarray(a), refa)
-
 
 class TestLongUtteranceChunking:
     def test_long_decode_chunks_and_concatenates(self):
         """A >32767-frame utterance decodes via low-energy-cut chunks;
         the transcript equals the concatenation of the per-chunk
         decodes and the old numbered error is gone."""
-        from htk_tpu.algo.decode import (CHUNK_T, REC_TMASK,
+        from htk_jax.algo.decode import (CHUNK_T, REC_TMASK,
                                          _decode_chunked)
 
         comp = separable_set()
@@ -424,7 +408,7 @@ class TestLongUtteranceChunking:
         assert t_ends[-1] > CHUNK_T  # words beyond the first chunk
 
     def test_batch_routes_long_through_chunking(self):
-        from htk_tpu.algo.decode import REC_TMASK
+        from htk_jax.algo.decode import REC_TMASK
 
         comp = separable_set()
         net = compile_lv_loop(["A", "I", "S"], make_vocab(), comp,

@@ -9,8 +9,8 @@ implementations, including bucket layouts and slot orders."""
 import numpy as np
 import pytest
 
-from htk_tpu.algo import lvnet
-from htk_tpu.io.lm import LN10, NGramLM
+from htk_jax.algo import lvnet
+from htk_jax.io.lm import LN10, NGramLM
 
 LZERO = -1.0e10
 
@@ -264,7 +264,7 @@ def test_factored_rows_no_bigrams():
 def test_factored_rows_packed_lm(tmp_path):
     """The PackedNGramLM array path produces the same tables as the
     dict path for the same ARPA file."""
-    from htk_tpu.io.lm import read_arpa, write_arpa
+    from htk_jax.io.lm import read_arpa, write_arpa
 
     rng = np.random.default_rng(11)
     words, lm = _random_lm(rng, 20, 140)

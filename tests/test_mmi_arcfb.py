@@ -13,11 +13,11 @@ import pytest
 
 import jax.numpy as jnp
 
-from htk_tpu.algo.fb import fb_utterance, zero_accs
-from htk_tpu.algo.trainer import Trainer
-from htk_tpu.models.hmmset import compile_hmmset
-from htk_tpu.models.proto import clone_proto, make_proto
-from htk_tpu.tools.hmmirest import ArcFB, ArcUtt
+from htk_jax.algo.fb import fb_utterance, zero_accs
+from htk_jax.algo.trainer import Trainer
+from htk_jax.models.hmmset import compile_hmmset
+from htk_jax.models.proto import clone_proto, make_proto
+from htk_jax.tools.hmmirest import ArcFB, ArcUtt
 
 
 @pytest.fixture(scope="module")
@@ -37,8 +37,8 @@ def comp():
 def _reference_accumulate(comp, trainer, feats_list, arcs, weights):
     """Per-arc fb_utterance with host-sliced features (the pre-round-5
     path's math, unbatched)."""
-    from htk_tpu.algo.composite import build_composite
-    from htk_tpu.algo.trainer import UttData, pad_batch
+    from htk_jax.algo.composite import build_composite
+    from htk_jax.algo.trainer import UttData, pad_batch
 
     total = zero_accs(comp.n_mix, comp.dim, comp.n_states, comp.max_mix,
                       trainer.tr_flat)
@@ -104,9 +104,9 @@ def test_arcfb_score_and_accumulate_match_reference(comp):
 
     # scores match per-arc forward loglik
     lls = arcfb.score(fbank, utts)
-    from htk_tpu.algo.composite import build_composite
-    from htk_tpu.algo.fb import loglik_utterance
-    from htk_tpu.algo.trainer import UttData, pad_batch
+    from htk_jax.algo.composite import build_composite
+    from htk_jax.algo.fb import loglik_utterance
+    from htk_jax.algo.trainer import UttData, pad_batch
 
     params = trainer.params()
     for uu in utts:

@@ -6,11 +6,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from htk_tpu.io.mmf import HMMSet, load_mmf, save_mmf, MixPDF
-from htk_tpu.models.hmmset import compile_hmmset, write_back
-from htk_tpu.models.proto import clone_proto, make_proto, left_to_right_transp
-from htk_tpu.ops.outp import all_state_outp
-from htk_tpu.utils.logmath import LZERO
+from htk_jax.io.mmf import HMMSet, load_mmf, save_mmf, MixPDF
+from htk_jax.models.hmmset import compile_hmmset, write_back
+from htk_jax.models.proto import clone_proto, make_proto, left_to_right_transp
+from htk_jax.ops.outp import all_state_outp
+from htk_jax.utils.logmath import LZERO
 
 MMF_TEXT = """~o
 <STREAMINFO> 1 4
@@ -247,7 +247,7 @@ class TestBinaryMMF:
         np.testing.assert_allclose(w1, w2, rtol=1e-6)
 
     def test_binary_discrete_dprobs(self, tmp_path):
-        from htk_tpu.models.proto import make_discrete_proto
+        from htk_jax.models.proto import make_discrete_proto
 
         cl = clone_proto(make_discrete_proto(nstates=4, codebook_sizes=[8]),
                          "proto", ["dd"])
@@ -259,7 +259,7 @@ class TestBinaryMMF:
         np.testing.assert_array_equal(np.asarray(s1), np.asarray(s2))
 
     def test_old_pickle_format_rejected(self, tmp_path):
-        from htk_tpu.utils.errors import HTKError
+        from htk_jax.utils.errors import HTKError
 
         p = tmp_path / "evil.mmf"
         p.write_bytes(b"#!HTK-TPU-BMMF!#" + b"\x80\x04whatever")

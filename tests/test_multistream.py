@@ -6,13 +6,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from htk_tpu.algo.reestimate import UpdateFlags, reestimate
-from htk_tpu.algo.trainer import Trainer, prepare_utterance
-from htk_tpu.io.mmf import load_mmf, save_mmf
-from htk_tpu.models.hmmset import PAD_VAR, compile_hmmset, write_back
-from htk_tpu.models.proto import clone_proto, make_proto
-from htk_tpu.ops.outp import all_state_outp
-from htk_tpu.utils.logmath import LZERO
+from htk_jax.algo.reestimate import UpdateFlags, reestimate
+from htk_jax.algo.trainer import Trainer, prepare_utterance
+from htk_jax.io.mmf import load_mmf, save_mmf
+from htk_jax.models.hmmset import PAD_VAR, compile_hmmset, write_back
+from htk_jax.models.proto import clone_proto, make_proto
+from htk_jax.ops.outp import all_state_outp
+from htk_jax.utils.logmath import LZERO
 
 
 def ms_set(seed=0, widths=(3, 2), nmix=1):

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from htk_tpu.io import parmkind as pk
-from htk_tpu.io.htkfeat import _crc16, read_htk_file, write_htk_file
-from htk_tpu.native import get_htkio, load_corpus_batch
+from htk_jax.io import parmkind as pk
+from htk_jax.io.htkfeat import _crc16, read_htk_file, write_htk_file
+from htk_jax.native import get_htkio, load_corpus_batch
 
 needs_native = pytest.mark.skipif(get_htkio() is None,
                                   reason="no C++ toolchain")
@@ -55,8 +55,8 @@ class TestMLFMarks:
     def test_native_mlf_equals_pure(self, tmp_path):
         """The C MLF scanner fast path produces identical entries to the
         pure-Python reader (which it silently replaces when available)."""
-        import htk_tpu.native as N
-        from htk_tpu.io.mlf import MLF
+        import htk_jax.native as N
+        from htk_jax.io.mlf import MLF
 
         p = tmp_path / "big.mlf"
         with open(p, "w") as f:
@@ -89,8 +89,8 @@ class TestMLFMarks:
 import math
 import os
 
-from htk_tpu.io import lm as lmmod
-from htk_tpu.io.lm import NGramLM, PackedNGramLM, read_arpa
+from htk_jax.io import lm as lmmod
+from htk_jax.io.lm import NGramLM, PackedNGramLM, read_arpa
 
 
 import math
@@ -99,8 +99,8 @@ import os
 import numpy as np
 import pytest
 
-from htk_tpu.io import lm as lmmod
-from htk_tpu.io.lm import NGramLM, PackedNGramLM, read_arpa
+from htk_jax.io import lm as lmmod
+from htk_jax.io.lm import NGramLM, PackedNGramLM, read_arpa
 
 ARPA = """\
 
@@ -213,7 +213,7 @@ def test_arpa_native_empty_sections_and_order(tmp_path):
 
 
 def test_arpa_native_no_unigrams_error(tmp_path):
-    from htk_tpu.utils.errors import HTKError
+    from htk_jax.utils.errors import HTKError
     path = _write(tmp_path, "\\data\\\n\\1-grams:\n\\end\\\n")
     with pytest.raises(HTKError):
         read_arpa(path)
@@ -271,7 +271,7 @@ def test_arpa_unsupported_order_numbered_error(tmp_path):
     """\\5-grams: must raise HError 8153 on BOTH readers (the native
     codec fails the parse and the Python fallback reports it), not
     silently drop the section or misparse its lines."""
-    from htk_tpu.utils.errors import HTKError
+    from htk_jax.utils.errors import HTKError
 
     text = ("\\data\\\n\\1-grams:\n-1 a\n-1 b\n"
             "\\5-grams:\n-0.1 a b a b a\n\\end\\\n")
@@ -290,7 +290,7 @@ def test_arpa_bad_number_numbered_error(tmp_path):
     """A malformed prob/back-off field raises HError 8154 on both
     readers instead of a raw ValueError (Python) or a silent skip
     (native)."""
-    from htk_tpu.utils.errors import HTKError
+    from htk_jax.utils.errors import HTKError
 
     for bad in ("\\data\\\n\\1-grams:\nxx a\n\\end\\\n",
                 "\\data\\\n\\1-grams:\n-1 a notanumber\n\\end\\\n"):
@@ -311,7 +311,7 @@ def test_read_lm_filtered_matrix_bigram(tmp_path):
     gzipped bytes and crash)."""
     import gzip
 
-    from htk_tpu.utils.config import Config
+    from htk_jax.utils.config import Config
 
     words = ["a", "b"]
     lm = lmmod.NGramLM(order=2)
@@ -332,10 +332,10 @@ def test_preload_corpus_matches_open_speech_file(tmp_path):
     """The native corpus preload returns exactly what open_speech_file
     returns per file for _C(_K) feature corpora, and declines files it
     must not cover (uncompressed, segment-sliced)."""
-    from htk_tpu.io import parmkind as pkm
-    from htk_tpu.io.htkfeat import write_htk_file
-    from htk_tpu.tools._common import open_speech_file, preload_corpus
-    from htk_tpu.utils.config import Config
+    from htk_jax.io import parmkind as pkm
+    from htk_jax.io.htkfeat import write_htk_file
+    from htk_jax.tools._common import open_speech_file, preload_corpus
+    from htk_jax.utils.config import Config
 
     rng = np.random.default_rng(4)
     cfg = Config()

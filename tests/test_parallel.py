@@ -4,9 +4,9 @@ import jax
 import numpy as np
 import pytest
 
-from htk_tpu.algo.trainer import Trainer, prepare_utterance
-from htk_tpu.parallel.acc_files import dump_accs, load_accs, sum_accs
-from htk_tpu.parallel.mesh import ShardedTrainer, make_mesh
+from htk_jax.algo.trainer import Trainer, prepare_utterance
+from htk_jax.parallel.acc_files import dump_accs, load_accs, sum_accs
+from htk_jax.parallel.mesh import ShardedTrainer, make_mesh
 
 from test_fb import small_set
 

@@ -5,9 +5,9 @@ import math
 import numpy as np
 import pytest
 
-from htk_tpu.io import parmkind as pk
-from htk_tpu.ops import dsp
-from htk_tpu.ops.dsp import FrontendConfig, compute_features
+from htk_jax.io import parmkind as pk
+from htk_jax.ops import dsp
+from htk_jax.ops.dsp import FrontendConfig, compute_features
 
 from test_frontend import synth_wave
 

@@ -12,7 +12,7 @@ import struct
 
 import numpy as np
 
-from htk_tpu.io.htkfeat import _crc16
+from htk_jax.io.htkfeat import _crc16
 
 
 class TestCRC16:
@@ -27,7 +27,7 @@ class TestCRC16:
         assert _crc16(b"") == 0xFFFF
 
     def test_native_matches(self):
-        from htk_tpu.native import get_htkio
+        from htk_jax.native import get_htkio
 
         lib = get_htkio()
         if lib is None:
@@ -41,7 +41,7 @@ class TestMuLaw:
         ulaw2linear table (the de-facto G.711 reference): 0xFF -> +0,
         0x7F -> -0, 0x80 -> +32124 (positive peak), 0x00 -> -32124
         (negative peak; the sign bit lives in the complemented byte)."""
-        from htk_tpu.io.wavefile import read_wave
+        from htk_jax.io.wavefile import read_wave
 
         codes = bytes([0xFF, 0x7F, 0x80, 0x00])
         hdr = b".snd" + struct.pack(">IIIII", 24, len(codes), 1, 8000, 1)
@@ -59,7 +59,7 @@ class TestDCTOrthogonality:
         """HTK's DCT matrix (sqrt(2/N) cos(pi i (j-1/2)/N)) is, per the
         DCT-II definition in any signal-processing text, orthogonal up
         to the missing c0 row: M^T M = I for rows 1..N-1."""
-        from htk_tpu.ops.dsp import dct_matrix
+        from htk_jax.ops.dsp import dct_matrix
 
         M = dct_matrix(20, 19).astype(np.float64)  # all AC rows
         G = M.T @ M
@@ -86,8 +86,8 @@ class TestCompressedParmFile:
         (max_j - min_j), and the file stores A then B as float rows
         before the shorts. Bytes are recomputed here independently from
         that published formula and compared against the writer."""
-        from htk_tpu.io.htkfeat import read_htk_file, write_htk_file
-        from htk_tpu.io.parmkind import HASCOMPX, str2parmkind
+        from htk_jax.io.htkfeat import read_htk_file, write_htk_file
+        from htk_jax.io.parmkind import HASCOMPX, str2parmkind
 
         x = np.array([[0.5, -2.0], [1.5, 6.0], [-0.5, 4.0]], np.float32)
         kind = str2parmkind("USER_C")
@@ -134,7 +134,7 @@ class TestNISTSphere:
         return hdr.encode().ljust(1024, b" ") + body
 
     def test_reads_published_layout_both_orders(self, tmp_path):
-        from htk_tpu.io.wavefile import read_wave
+        from htk_jax.io.wavefile import read_wave
 
         s = np.array([0, 1000, -1000, 32767, -32768, 7], np.int16)
         for bf in ("10", "01"):  # big- and little-endian sample bytes
@@ -151,7 +151,7 @@ class TestSunAu:
         format spec): magic '.snd' (0x2E736E64), 24-byte big-endian
         header (magic, data offset, data size, encoding, sample rate,
         channels), encoding 1 = 8-bit G.711 mu-law."""
-        from htk_tpu.io.wavefile import read_wave
+        from htk_jax.io.wavefile import read_wave
 
         # mu-law codes for known G.711 decode points (Sun g711.c):
         # 0xFF -> 0, 0x7F -> -8031... use 0xFF (zero) and 0x80 (+32124)

@@ -11,8 +11,8 @@ import os
 import numpy as np
 import pytest
 
-from htk_tpu.algo.trainer import Trainer, prepare_utterance
-from htk_tpu.tools import hcompv, hcopy, herest, hresults, hvite, hbuild
+from htk_jax.algo.trainer import Trainer, prepare_utterance
+from htk_jax.tools import hcompv, hcopy, herest, hresults, hvite, hbuild
 
 from _synth import synth_utterance, write_wav
 from test_decode import separable_set
@@ -86,17 +86,17 @@ def corpus26(tmp_path, monkeypatch):
     open("train39.scp", "w").write(
         "\n".join(f"u{i}.mfc39" for i in range(6)))
 
-    from htk_tpu.io.mmf import save_mmf
-    from htk_tpu.models.proto import make_proto
+    from htk_jax.io.mmf import save_mmf
+    from htk_jax.models.proto import make_proto
 
     save_mmf(make_proto(nstates=5, dim=26, parm_kind="MFCC_E_D"), "proto")
     return tmp_path
 
 
 def test_single_pass_retraining_e2e(corpus26, capsys):
-    from htk_tpu.io.mmf import load_mmf, save_mmf
-    from htk_tpu.io.parmkind import parmkind2str
-    from htk_tpu.models.proto import clone_proto
+    from htk_jax.io.mmf import load_mmf, save_mmf
+    from htk_jax.io.parmkind import parmkind2str
+    from htk_jax.models.proto import clone_proto
 
     assert hcopy.run(["-C", "cfg26w", "-S", "copy26.scp"]) == 0
     assert hcopy.run(["-C", "cfg39w", "-S", "copy39.scp"]) == 0
@@ -142,8 +142,8 @@ def test_single_pass_retraining_e2e(corpus26, capsys):
 def test_single_pass_retraining_parallel_accs(corpus26):
     """-r with -p N shard dumps then -p 0 combine: same retrained model
     geometry as the direct path."""
-    from htk_tpu.io.mmf import load_mmf, save_mmf
-    from htk_tpu.models.proto import clone_proto
+    from htk_jax.io.mmf import load_mmf, save_mmf
+    from htk_jax.models.proto import clone_proto
 
     assert hcopy.run(["-C", "cfg26w", "-S", "copy26.scp"]) == 0
     assert hcopy.run(["-C", "cfg39w", "-S", "copy39.scp"]) == 0

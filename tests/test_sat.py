@@ -5,12 +5,12 @@ import os
 import numpy as np
 import pytest
 
-from htk_tpu.algo.adapt import Transform, save_tmf
-from htk_tpu.io import parmkind as pk
-from htk_tpu.io.htkfeat import write_htk_file
-from htk_tpu.io.mmf import load_mmf, save_mmf
-from htk_tpu.models.proto import clone_proto, make_proto
-from htk_tpu.tools import herest
+from htk_jax.algo.adapt import Transform, save_tmf
+from htk_jax.io import parmkind as pk
+from htk_jax.io.htkfeat import write_htk_file
+from htk_jax.io.mmf import load_mmf, save_mmf
+from htk_jax.models.proto import clone_proto, make_proto
+from htk_jax.tools import herest
 
 DIM = 4
 CENTERS = {"aa": 4.0, "iy": -4.0}
@@ -105,14 +105,14 @@ def test_sat_model_space_mllr_group(sat_corpus):
 
 def test_hvite_parent_transform_composition(sat_corpus):
     """Global MLLR parent + per-speaker CMLLR children compose in HVite."""
-    from htk_tpu.tools import hbuild, hresults, hvite
+    from htk_jax.tools import hbuild, hresults, hvite
 
     # shift all data up by a further global offset the CMLLR inputs
     # don't know about; a global parent MLLR on the means absorbs it
     G = 3.0
     import numpy as np
-    from htk_tpu.io.htkfeat import read_htk_file, write_htk_file
-    from htk_tpu.io import parmkind as pk
+    from htk_jax.io.htkfeat import read_htk_file, write_htk_file
+    from htk_jax.io import parmkind as pk
 
     kind = pk.str2parmkind("USER")
     for fn in open("train.scp").read().split():
@@ -160,7 +160,7 @@ def test_hvite_parent_transform_composition(sat_corpus):
 def test_herest_mllrcov_to_hvite(sat_corpus):
     """TRANSKIND=MLLRCOV: HERest estimates full variance transforms,
     HVite applies them via the full-covariance scorer."""
-    from htk_tpu.tools import hbuild, hresults, hvite
+    from htk_jax.tools import hbuild, hresults, hvite
 
     open("cfgcov", "w").write("HADAPT: TRANSKIND = MLLRCOV\n")
     os.makedirs("xfc", exist_ok=True)
@@ -194,7 +194,7 @@ def test_herest_mllrcov_to_hvite(sat_corpus):
 def test_herest_cmllr_classes_to_hvite(sat_corpus):
     """TRANSKIND=CMLLR with NUMREGCLASSES>1: base-class constrained
     transforms, applied in HVite through the full-covariance scorer."""
-    from htk_tpu.tools import hbuild, hresults, hvite
+    from htk_jax.tools import hbuild, hresults, hvite
 
     open("cfgcc", "w").write(
         "HADAPT: TRANSKIND = CMLLR\n"

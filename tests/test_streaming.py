@@ -8,17 +8,17 @@ algo/decode.decode — because both run the identical per-frame math.
 import numpy as np
 import pytest
 
-from htk_tpu.algo.decode import decode
-from htk_tpu.algo.net import compile_network
-from htk_tpu.algo.stream_decode import StreamingDecoder
-from htk_tpu.io import parmkind as pk
-from htk_tpu.io.audio import ArrayAudio, FileReplayAudio, open_audio_input
-from htk_tpu.io.dictionary import Vocab
-from htk_tpu.ops.dsp import FrontendConfig, compute_features
-from htk_tpu.ops.stream import StreamingFrontend
-from htk_tpu.tools.hbuild import word_loop_lattice
-from htk_tpu.utils.config import Config
-from htk_tpu.utils.errors import HTKError
+from htk_jax.algo.decode import decode
+from htk_jax.algo.net import compile_network
+from htk_jax.algo.stream_decode import StreamingDecoder
+from htk_jax.io import parmkind as pk
+from htk_jax.io.audio import ArrayAudio, FileReplayAudio, open_audio_input
+from htk_jax.io.dictionary import Vocab
+from htk_jax.ops.dsp import FrontendConfig, compute_features
+from htk_jax.ops.stream import StreamingFrontend
+from htk_jax.tools.hbuild import word_loop_lattice
+from htk_jax.utils.config import Config
+from htk_jax.utils.errors import HTKError
 
 from _synth import synth_utterance, write_wav
 from test_decode import emit_frames, separable_set
@@ -215,7 +215,7 @@ class TestStreamingHybrid:
         from test_decode import emit_frames
         feats = emit_frames(["sil", "aa", "iy", "sil"], frames_per=15,
                             seed=2)
-        from htk_tpu.ops.outp import all_state_outp
+        from htk_jax.ops.outp import all_state_outp
         import jax.numpy as jnp
         logb, _ = all_state_outp(
             jnp.asarray(feats), jnp.asarray(comp.means),
@@ -241,8 +241,8 @@ class TestHCopyLive:
         converts — identical features to the file path."""
         import numpy as np
 
-        from htk_tpu.io.htkfeat import read_htk_file
-        from htk_tpu.tools import hcopy
+        from htk_jax.io.htkfeat import read_htk_file
+        from htk_jax.tools import hcopy
 
         monkeypatch.chdir(tmp_path)
         rng = np.random.default_rng(4)

@@ -10,10 +10,10 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
-from htk_tpu.algo.composite import build_composite
-from htk_tpu.algo.fb import backward_scan, forward_scan, xi_scan
-from htk_tpu.parallel.timeshard import fb_time_sharded
-from htk_tpu.utils.logmath import ladd_reduce
+from htk_jax.algo.composite import build_composite
+from htk_jax.algo.fb import backward_scan, forward_scan, xi_scan
+from htk_jax.parallel.timeshard import fb_time_sharded
+from htk_jax.utils.logmath import ladd_reduce
 
 from test_fb import small_set
 
@@ -79,7 +79,7 @@ def test_posteriors_normalise():
 def test_2d_dp_x_t_batch_matches_serial():
     """fb_time_sharded_batch on a (dp=2, t=4) mesh: every utterance in
     the dp-sharded batch must match the serial scans like the 1D form."""
-    from htk_tpu.parallel.timeshard import fb_time_sharded_batch
+    from htk_jax.parallel.timeshard import fb_time_sharded_batch
 
     comp, hmm = _chain()
     T, B = 32, 4

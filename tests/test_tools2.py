@@ -4,15 +4,15 @@ import os
 import numpy as np
 import pytest
 
-from htk_tpu.io.dictionary import Vocab, read_dict
-from htk_tpu.io.lm import read_arpa
-from htk_tpu.io.mlf import Label, Transcription
-from htk_tpu.io.slf import read_slf
-from htk_tpu.tools.hdman import apply_script
-from htk_tpu.tools.hled import LabelEditor
-from htk_tpu.tools.hlstats import estimate_backoff_bigram
-from htk_tpu.tools.hparse import parse_grammar
-from htk_tpu.algo.kmeans import kmeans, segment_kmeans_gmm
+from htk_jax.io.dictionary import Vocab, read_dict
+from htk_jax.io.lm import read_arpa
+from htk_jax.io.mlf import Label, Transcription
+from htk_jax.io.slf import read_slf
+from htk_jax.tools.hdman import apply_script
+from htk_jax.tools.hled import LabelEditor
+from htk_jax.tools.hlstats import estimate_backoff_bigram
+from htk_jax.tools.hparse import parse_grammar
+from htk_jax.algo.kmeans import kmeans, segment_kmeans_gmm
 
 
 class TestKMeans:
@@ -45,7 +45,7 @@ class TestHLStats:
         # backoff path returns a finite prob for unseen pairs
         assert lm.logp_bi("c", "b") > -50
         # ARPA roundtrip
-        from htk_tpu.io.lm import write_arpa
+        from htk_jax.io.lm import write_arpa
 
         p = str(tmp_path / "lm.arpa")
         write_arpa(lm, p)
@@ -56,9 +56,9 @@ class TestHLStats:
         """write -> read -> write is byte-identical; values match the
         ARPA source at f32 precision; read_lm sniffs all three
         containers; incompatible versions raise the numbered error."""
-        from htk_tpu.io.lm import (BINLM_MAGIC, NGramLM, read_binary_lm,
+        from htk_jax.io.lm import (BINLM_MAGIC, NGramLM, read_binary_lm,
                                    read_lm, write_binary_lm)
-        from htk_tpu.utils.errors import HTKError
+        from htk_jax.utils.errors import HTKError
 
         sents = [["a", "b"], ["a", "b"], ["a", "c"], ["b", "a"]]
         lm = estimate_backoff_bigram(sents)
@@ -77,7 +77,7 @@ class TestHLStats:
             lm.logp_bi("c", "b"), abs=1e-6)  # back-off weights survive
         # sniffing: binary and ARPA through one entry point
         pa = str(tmp_path / "lm.arpa")
-        from htk_tpu.io.lm import write_arpa
+        from htk_jax.io.lm import write_arpa
 
         write_arpa(lm, pa)
         assert read_lm(p1).bigrams.keys() == read_lm(pa).bigrams.keys()
@@ -95,7 +95,7 @@ class TestHLStats:
         LPlex and HBuild consume it transparently."""
         import os
 
-        from htk_tpu.tools import hbuild, lbuild, lplex
+        from htk_jax.tools import hbuild, lbuild, lplex
 
         monkeypatch.chdir(tmp_path)
         open("train.txt", "w").write(
@@ -104,7 +104,7 @@ class TestHLStats:
         open("wmap", "w").write("a\nb\nc\n")
         assert lbuild.run(["-C", "cfg", "-n", "2", "wmap", "lm.bin",
                            "train.txt"]) == 0
-        from htk_tpu.io.lm import BINLM_MAGIC
+        from htk_jax.io.lm import BINLM_MAGIC
 
         assert open("lm.bin", "rb").read().startswith(BINLM_MAGIC)
         open("words", "w").write("a\nb\nc\n")
@@ -113,7 +113,7 @@ class TestHLStats:
         assert lplex.run(["lm.bin", "train.txt"]) == 0
 
     def test_matrix_bigram_roundtrip(self, tmp_path):
-        from htk_tpu.io.lm import read_matrix_bigram, write_matrix_bigram
+        from htk_jax.io.lm import read_matrix_bigram, write_matrix_bigram
 
         sents = [["a", "b"], ["a", "b"], ["a", "c"], ["b", "a"]]
         lm = estimate_backoff_bigram(sents)
@@ -131,7 +131,7 @@ class TestHLStats:
         consumes it (sniffed vs ARPA)."""
         import os
 
-        from htk_tpu.tools import hbuild, hlstats
+        from htk_jax.tools import hbuild, hlstats
 
         monkeypatch.chdir(tmp_path)
         open("wlist", "w").write("a\nb\nc\n")
@@ -240,7 +240,7 @@ class TestHParse:
         assert lat.start_node() is not None
         # network admits repeated digits: check a back arc exists
         # (plus-loop: exit null -> entry null)
-        from htk_tpu.io.slf import write_slf
+        from htk_jax.io.slf import write_slf
 
         p = str(tmp_path / "g.slf")
         write_slf(lat, p)
@@ -253,7 +253,7 @@ class TestHParse:
         assert "a" in words and "b" in words and "c" in words
 
     def test_undefined_var(self):
-        from htk_tpu.utils.errors import HTKError
+        from htk_jax.utils.errors import HTKError
 
         with pytest.raises(HTKError):
             parse_grammar("( $nope )")
@@ -298,7 +298,7 @@ class TestWaveFormats:
     def test_aiff_roundtrip(self, tmp_path):
         import struct
         import numpy as np
-        from htk_tpu.io.wavefile import read_wave
+        from htk_jax.io.wavefile import read_wave
 
         s = np.arange(-50, 50, dtype=">i2")
         # 80-bit extended float for 16000.0: exp=16383+13, mant=16000<<50
@@ -319,7 +319,7 @@ class TestWaveFormats:
     def test_sunau_linear16(self, tmp_path):
         import struct
         import numpy as np
-        from htk_tpu.io.wavefile import read_wave
+        from htk_jax.io.wavefile import read_wave
 
         s = np.arange(0, 30, dtype=">i2")
         hdr = b".snd" + struct.pack(">IIIII", 24, len(s) * 2, 3, 8000, 1)
@@ -332,7 +332,7 @@ class TestWaveFormats:
     def test_sunau_ulaw_silence(self, tmp_path):
         import struct
         import numpy as np
-        from htk_tpu.io.wavefile import read_wave
+        from htk_jax.io.wavefile import read_wave
 
         # mu-law 0xFF encodes 0
         hdr = b".snd" + struct.pack(">IIIII", 24, 8, 1, 8000, 1)
@@ -344,8 +344,8 @@ class TestWaveFormats:
 
 class TestLM4:
     def test_fourgram_roundtrip(self, tmp_path):
-        from htk_tpu.io.lm import read_arpa, write_arpa
-        from htk_tpu.tools.lbuild import build_lm
+        from htk_jax.io.lm import read_arpa, write_arpa
+        from htk_jax.tools.lbuild import build_lm
 
         sents = [["a", "b", "c", "d"], ["a", "b", "c", "e"],
                  ["a", "b", "c", "d"]]
@@ -362,8 +362,8 @@ class TestLM4:
         )
 
     def test_subset(self):
-        from htk_tpu.tools.lbuild import build_lm
-        from htk_tpu.tools.lsubset import subset
+        from htk_jax.tools.lbuild import build_lm
+        from htk_jax.tools.lsubset import subset
 
         lm = build_lm([["a", "b"], ["c", "d"]], order=2)
         out = subset(lm, {"a", "b", "<s>", "</s>"})
@@ -373,9 +373,9 @@ class TestLM4:
 
 class TestHList:
     def test_htk_file_header_and_rows(self, tmp_path, monkeypatch, capsys):
-        from htk_tpu.io import parmkind as pk
-        from htk_tpu.io.htkfeat import write_htk_file
-        from htk_tpu.tools import hlist
+        from htk_jax.io import parmkind as pk
+        from htk_jax.io.htkfeat import write_htk_file
+        from htk_jax.tools import hlist
 
         monkeypatch.chdir(tmp_path)
         x = np.arange(12, dtype=np.float32).reshape(3, 4)
@@ -395,7 +395,7 @@ class TestHList:
         import sys
         sys.path.insert(0, os.path.dirname(__file__))
         from test_e2e import synth, write_wav
-        from htk_tpu.tools import hlist
+        from htk_jax.tools import hlist
 
         monkeypatch.chdir(tmp_path)
         rng = np.random.default_rng(0)
@@ -411,11 +411,11 @@ class TestHList:
 
 class TestHCompVSegments:
     def test_l_restricts_stats_to_label(self, tmp_path, monkeypatch):
-        from htk_tpu.io import parmkind as pk
-        from htk_tpu.io.htkfeat import write_htk_file
-        from htk_tpu.io.mmf import load_mmf, save_mmf
-        from htk_tpu.models.proto import make_proto
-        from htk_tpu.tools import hcompv
+        from htk_jax.io import parmkind as pk
+        from htk_jax.io.htkfeat import write_htk_file
+        from htk_jax.io.mmf import load_mmf, save_mmf
+        from htk_jax.models.proto import make_proto
+        from htk_jax.tools import hcompv
 
         monkeypatch.chdir(tmp_path)
         rng = np.random.default_rng(0)
@@ -460,7 +460,7 @@ class TestHLEdExtra:
 
 class TestHSGen:
     def test_walks_and_stats(self, tmp_path, monkeypatch, capsys):
-        from htk_tpu.tools import hbuild, hsgen
+        from htk_jax.tools import hbuild, hsgen
 
         monkeypatch.chdir(tmp_path)
         open("wl", "w").write("one\ntwo\n")
@@ -479,7 +479,7 @@ class TestHResultsSpeakers:
         """HResults -k %%%* groups utterances by the captured speaker id
         and prints the SPKR breakdown table with per-speaker error."""
         # mask */%%%%_* captures the 4 chars between "*/" and "_"
-        from htk_tpu.tools import hresults
+        from htk_jax.tools import hresults
 
         monkeypatch.chdir(tmp_path)
         open("words.mlf", "w").write(
@@ -508,7 +508,7 @@ class TestHResultsDNW:
                                        capsys):
         """-d N oracle-scores the best of the first N alternatives
         (HVite -n N-best MLFs use /// separators)."""
-        from htk_tpu.tools import hresults
+        from htk_jax.tools import hresults
 
         monkeypatch.chdir(tmp_path)
         open("ref.mlf", "w").write(
@@ -527,7 +527,7 @@ class TestHResultsDNW:
         assert "%Corr=100.00, Acc=100.00" in out
 
     def test_n_nist_table(self, tmp_path, monkeypatch, capsys):
-        from htk_tpu.tools import hresults
+        from htk_jax.tools import hresults
 
         monkeypatch.chdir(tmp_path)
         open("ref.mlf", "w").write(
@@ -549,7 +549,7 @@ class TestHResultsDNW:
         2 true occurrences; spots: best-scored hits first, then an FA —
         detection stays 100% for every FA band -> FOM 100; a second
         run with the hit below the FA drops the first band."""
-        from htk_tpu.tools import hresults
+        from htk_jax.tools import hresults
 
         monkeypatch.chdir(tmp_path)
         HOUR = 36_000_000_000  # 100ns units

@@ -17,11 +17,11 @@ LM-state tokens. These tests pin:
 import numpy as np
 import pytest
 
-from htk_tpu.algo.decode import (_host_lm3_lookup, decode,
+from htk_jax.algo.decode import (_host_lm3_lookup, decode,
                                  generate_lattice)
-from htk_tpu.algo.lvnet import _trigram_tables, compile_lv_loop
-from htk_tpu.io.dictionary import Vocab
-from htk_tpu.io.lm import NGramLM
+from htk_jax.algo.lvnet import _trigram_tables, compile_lv_loop
+from htk_jax.io.dictionary import Vocab
+from htk_jax.io.lm import NGramLM
 
 from test_decode import emit_frames, separable_set
 from test_lvdecode import make_lm, make_vocab
@@ -161,7 +161,7 @@ class TestDecode:
         cancel only in relative comparisons), so the identity holds
         after adding them back.
         """
-        from htk_tpu.algo.latops import best_path_trigram
+        from htk_jax.algo.latops import best_path_trigram
 
         words = ["A", "I", "S"]
         comp = separable_set()
@@ -186,7 +186,7 @@ class TestDecode:
         """Boundary mode (<s>/</s> as obligatory rows): pass-1 guided
         1-best score == the exact trigram rescore with no convention
         adjustments (</s> is a real scored node; word_pen 0)."""
-        from htk_tpu.algo.latops import best_path_trigram
+        from htk_jax.algo.latops import best_path_trigram
 
         v = Vocab()
         v.add_pron("A", ["aa"])
@@ -309,7 +309,7 @@ class TestMultiPredLattice:
         reachable. (Different SEGMENTATIONS remain the job of
         single-pass guidance — alternatives share the winner's
         boundaries by the acoustic-invariance approximation.)"""
-        from htk_tpu.algo.latops import best_path_trigram
+        from htk_jax.algo.latops import best_path_trigram
 
         v = Vocab()
         v.add_pron("X", ["aa"])
@@ -358,7 +358,7 @@ class TestMultiPredLattice:
         assert len(la.arcs) == len(lb.arcs)
 
     def test_batch_matches_sequential_multipred(self):
-        from htk_tpu.algo.decode import generate_lattice_batch
+        from htk_jax.algo.decode import generate_lattice_batch
         from test_lvdecode import TestLVBatch
 
         words = ["A", "I", "S"]
@@ -393,7 +393,7 @@ class TestMultiPredLattice:
         lat = generate_lattice(net, comp, feats, lm_scale=4.0,
                                word_pen=-1.0, lattice_beam=400.0,
                                max_preds=8)
-        from htk_tpu.algo.latops import best_path
+        from htk_jax.algo.latops import best_path
 
         lat1 = generate_lattice(net, comp, feats, lm_scale=4.0,
                                 word_pen=-1.0, lattice_beam=400.0)

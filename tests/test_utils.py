@@ -7,11 +7,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from htk_tpu.utils import logmath
-from htk_tpu.utils.config import Config
-from htk_tpu.utils.cli import Option, parse_args, read_scp
-from htk_tpu.utils.errors import HTKError
-from htk_tpu.io.scp import parse_scp_entry
+from htk_jax.utils import logmath
+from htk_jax.utils.config import Config
+from htk_jax.utils.cli import Option, parse_args, read_scp
+from htk_jax.utils.errors import HTKError
+from htk_jax.io.scp import parse_scp_entry
 
 
 def ladd_ref(x, y):
@@ -175,8 +175,8 @@ class TestMetrics:
     def test_emit_and_profile_noop(self, tmp_path):
         import json
 
-        from htk_tpu.utils.config import Config
-        from htk_tpu.utils.metrics import emit_metric, maybe_profile
+        from htk_jax.utils.config import Config
+        from htk_jax.utils.metrics import emit_metric, maybe_profile
 
         cfg = Config()
         emit_metric(cfg, "X", a=1)  # no METRICS configured: no-op
@@ -198,7 +198,7 @@ class TestMetrics:
         # here just confirm the config key routes through HResults
         import json
 
-        from htk_tpu.tools import hresults
+        from htk_jax.tools import hresults
 
         monkeypatch.chdir(tmp_path)
         open("ref.mlf", "w").write('#!MLF!#\n"*/u0.lab"\na\nb\n.\n')
@@ -215,8 +215,8 @@ class TestLabelFormats:
     def test_timit_labels_convert(self, tmp_path, monkeypatch):
         """HLEd -G TIMIT converts sample-count labels into an HTK MLF
         (the TIMIT .phn recipe entry point)."""
-        from htk_tpu.io.mlf import MLF
-        from htk_tpu.tools import hled
+        from htk_jax.io.mlf import MLF
+        from htk_jax.tools import hled
 
         monkeypatch.chdir(tmp_path)
         open("u1.phn", "w").write("0 1600 sil\n1600 9600 aa\n9600 12800 sil\n")
@@ -228,7 +228,7 @@ class TestLabelFormats:
         assert [l.name for l in tr.labels] == ["sil", "aa", "sil"]
 
     def test_timit_times_scale_by_625(self):
-        from htk_tpu.io.mlf import load_label_file
+        from htk_jax.io.mlf import load_label_file
         import os, tempfile
 
         d = tempfile.mkdtemp()
@@ -239,7 +239,7 @@ class TestLabelFormats:
         assert tr.labels[0].end == 16000 * 625  # 1 s at 16 kHz
 
     def test_esps_labels(self, tmp_path):
-        from htk_tpu.io.mlf import load_label_file
+        from htk_jax.io.mlf import load_label_file
 
         p = str(tmp_path / "x.lab")
         open(p, "w").write(
@@ -250,8 +250,8 @@ class TestLabelFormats:
         assert tr.labels[1].start == 5000000 and tr.labels[1].end == 12500000
 
     def test_scribe_sam_labels(self, tmp_path):
-        from htk_tpu.io.mlf import load_label_file
-        from htk_tpu.utils.config import Config
+        from htk_jax.io.mlf import load_label_file
+        from htk_jax.utils.config import Config
 
         p = str(tmp_path / "x.sam")
         open(p, "w").write(
@@ -276,8 +276,8 @@ class TestLabelFormats:
     def test_unknown_format_rejected(self, tmp_path):
         import pytest as _pytest
 
-        from htk_tpu.io.mlf import load_label_file
-        from htk_tpu.utils.errors import HTKError
+        from htk_jax.io.mlf import load_label_file
+        from htk_jax.utils.errors import HTKError
 
         p = str(tmp_path / "y.lab")
         open(p, "w").write("x\n")
@@ -289,7 +289,7 @@ class TestOutpPrecision:
     """HTKTPU: PRECISION maps onto jax matmul precision for OutP paths."""
 
     def test_values_and_default(self):
-        from htk_tpu.tools._common import outp_precision
+        from htk_jax.tools._common import outp_precision
 
         cfg = Config.load([], use_env=False)
         assert outp_precision(cfg) == "highest"
@@ -298,7 +298,7 @@ class TestOutpPrecision:
             assert outp_precision(cfg) == v.lower()
 
     def test_bad_value_rejected(self):
-        from htk_tpu.tools._common import outp_precision
+        from htk_jax.tools._common import outp_precision
 
         cfg = Config.load([], use_env=False)
         cfg.set("PRECISION", "bf16", module="HTKTPU")

@@ -3,13 +3,13 @@
 import numpy as np
 import pytest
 
-from htk_tpu.algo.decode import decode
-from htk_tpu.algo.net import (_edge_phones, _xword_phones, compile_network,
+from htk_jax.algo.decode import decode
+from htk_jax.algo.net import (_edge_phones, _xword_phones, compile_network,
                               make_context_lookup)
-from htk_tpu.io.dictionary import Vocab
-from htk_tpu.models.hmmset import compile_hmmset
-from htk_tpu.models.proto import clone_proto, make_proto
-from htk_tpu.tools.hbuild import word_loop_lattice
+from htk_jax.io.dictionary import Vocab
+from htk_jax.models.hmmset import compile_hmmset
+from htk_jax.models.proto import clone_proto, make_proto
+from htk_jax.tools.hbuild import word_loop_lattice
 
 from test_decode import emit_frames, separable_set
 
